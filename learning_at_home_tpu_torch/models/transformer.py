@@ -1,0 +1,421 @@
+"""DMoE-Transformer language model in pod mode: forward and serving.
+
+The PyTorch counterpart of ``learning_at_home_tpu/models/transformer.py``
+for its serving path: a causal Transformer LM whose FFNs are mixtures of
+experts on one device (``parallel/sharded_moe.py``), with the full
+re-forward decoder and the KV-cache decoder of ``generate``.
+
+Parameters are an explicit tree of tensors with the JAX package's names,
+shapes and layouts (stacked layers with a leading ``n_layers`` dim, or a
+tuple of per-layer trees), so converted checkpoints (``convert.py``)
+compare leaf by leaf.  Training (``loss_fn``, the train step, remat, the
+fused cross-entropy) and sequence parallelism are not ported yet; they
+raise ``NotImplementedError`` naming the ROADMAP.md item that ports them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+from typing import Any
+
+import torch
+
+from learning_at_home_tpu_torch.device import resolve_device
+from learning_at_home_tpu_torch.initializers import lecun_normal, normal
+from learning_at_home_tpu_torch.models.trunk import (
+    attention_core,
+    causal_attention,
+    layer_norm,
+    one_query_attention,
+    output_projection,
+    qkv_projections,
+)
+from learning_at_home_tpu_torch.parallel.sharded_moe import (
+    ShardedMixtureOfExperts,
+)
+
+Params = Any
+
+TRAINING_ITEM = "ROADMAP.md, port queue item 2 (the pod-mode train step)"
+
+
+@dataclasses.dataclass(frozen=True)
+class DMoETransformerConfig:
+    """The JAX config's fields and defaults.  ``scan_layers`` only selects
+    the stacked layout's validation here: the port always loops over
+    layers."""
+
+    vocab_size: int = 32768
+    d_model: int = 512
+    n_layers: int = 4
+    n_heads: int = 8
+    seq_len: int = 256
+    num_experts: int = 256
+    k: int = 2
+    capacity_factor: float = 1.25
+    aux_loss_weight: float = 1e-2
+    router_z_weight: float = 1e-3
+    router_jitter: float = 0.0
+    gating: str = "topk"
+    # 'xla' = plain attention (scores materialised); 'flash' = the Hopper
+    # kernel; 'auto' = flash on a CUDA device at seq_len >= 8192 with
+    # seq_len % min(512, seq_len) == 0, else xla (the JAX rule, with the
+    # CUDA card in the place of the TPU)
+    attn_impl: str = "auto"
+    dtype: torch.dtype = torch.bfloat16
+    param_dtype: torch.dtype = torch.float32
+    remat: bool = False
+    remat_policy: str = "full"
+    scan_layers: bool = True
+    stack_layers: bool = True
+    tie_embeddings: bool = True
+    seq_parallel: bool = False
+    seq_layout: str = "zigzag"
+    ce_chunk: int = 1024
+    ce_impl: str = "chunked"
+    ce_block_n: int = 128
+    ce_block_v: int = 1024
+
+
+def _layer_slice(tree, i: int):
+    """Layer ``i`` of a stacked param tree (views, no copies)."""
+    if isinstance(tree, dict):
+        return {key: _layer_slice(val, i) for key, val in tree.items()}
+    return tree[i]
+
+
+class DMoETransformerLM:
+    """Functional model: explicit param tree, ``apply`` and ``generate``.
+
+    ``device`` is where parameters are made and the model runs; None means
+    the CUDA card (see :func:`~learning_at_home_tpu_torch.device.resolve_device`).
+    """
+
+    def __init__(self, config: DMoETransformerConfig, device=None):
+        self.device = resolve_device(device)
+        if config.attn_impl == "auto":
+            impl = (
+                "flash"
+                if self.device.type == "cuda"
+                and config.seq_len >= 8192
+                and config.seq_len % min(512, config.seq_len) == 0
+                else "xla"
+            )
+            config = dataclasses.replace(config, attn_impl=impl)
+        if config.scan_layers and not config.stack_layers:
+            raise ValueError(
+                "scan_layers=True requires stack_layers=True (the JAX scan "
+                "consumes the stacked param tree)"
+            )
+        if config.seq_parallel:
+            raise NotImplementedError(
+                f"seq_parallel (ring attention) is not ported yet: "
+                f"{TRAINING_ITEM}"
+            )
+        if config.remat:
+            raise NotImplementedError(f"remat is training-only: {TRAINING_ITEM}")
+        if config.ce_impl == "fused":
+            raise NotImplementedError(
+                f"ce_impl='fused' (kernels K1-K3) is not ported yet: "
+                f"{TRAINING_ITEM}"
+            )
+        self.cfg = config
+        self._decode_model: "DMoETransformerLM | None" = None
+        self.moe = ShardedMixtureOfExperts(
+            hidden_dim=config.d_model,
+            num_experts=config.num_experts,
+            k=config.k,
+            capacity_factor=config.capacity_factor,
+            dtype=config.dtype,
+            param_dtype=config.param_dtype,
+            router_jitter=config.router_jitter,
+            gating=config.gating,
+        )
+
+    # ---- parameters ----
+
+    def init_params(self, generator: torch.Generator) -> Params:
+        """Random parameters from ``generator``, which must live on the
+        model's device.  The JAX init's distributions (lecun-normal dense
+        weights, N(0, 1/d) embeddings), not its bits."""
+        if generator.device.type != self.device.type:
+            raise ValueError(
+                f"generator is on {generator.device}, the model on "
+                f"{self.device}"
+            )
+        cfg = self.cfg
+        d, v, s, n_layers = cfg.d_model, cfg.vocab_size, cfg.seq_len, cfg.n_layers
+        pdt, dev = cfg.param_dtype, self.device
+
+        def ln(lead):
+            return {"scale": torch.ones((*lead, d), dtype=pdt, device=dev),
+                    "bias": torch.zeros((*lead, d), dtype=pdt, device=dev)}
+
+        def init_layer(lead):
+            return {
+                "ln1": ln(lead),
+                "wq": lecun_normal((d, d), generator, pdt, lead),
+                "wk": lecun_normal((d, d), generator, pdt, lead),
+                "wv": lecun_normal((d, d), generator, pdt, lead),
+                "wo": lecun_normal((d, d), generator, pdt, lead),
+                "ln2": ln(lead),
+                "moe": self.moe.init_params(generator, lead),
+            }
+
+        params: dict = {
+            "embed": normal((v, d), d ** -0.5, generator, pdt),
+            "pos": normal((s, d), d ** -0.5, generator, pdt),
+            "ln_f": ln(()),
+            "layers": (
+                init_layer((n_layers,))
+                if cfg.stack_layers
+                else tuple(init_layer(()) for _ in range(n_layers))
+            ),
+        }
+        if not cfg.tie_embeddings:
+            params["lm_head"] = lecun_normal((d, v), generator, pdt)
+        return params
+
+    # ---- forward ----
+
+    def _layer_params(self, params: Params, i: int):
+        """Layer i's param tree under either layout (stacked / tuple)."""
+        if self.cfg.stack_layers:
+            return _layer_slice(params["layers"], i)
+        return params["layers"][i]
+
+    def _layer(self, lp, x, token_mask=None):
+        x = x + causal_attention(
+            lp, layer_norm(lp["ln1"], x), self.cfg.n_heads,
+            impl=self.cfg.attn_impl,
+        )
+        b, s, d = x.shape
+        moe_in = layer_norm(lp["ln2"], x).reshape(b * s, d)
+        moe_out, aux = self.moe(
+            lp["moe"], moe_in,
+            token_mask=None if token_mask is None else token_mask.reshape(b * s),
+        )
+        return x + moe_out.reshape(b, s, d), aux
+
+    def _embed(self, params: Params, token_ids: torch.Tensor,
+               start: int = 0) -> torch.Tensor:
+        """Token plus position embeddings of [B, S] ids at positions
+        ``start ..``, in the compute dtype."""
+        dt = self.cfg.dtype
+        s = token_ids.shape[1]
+        x = params["embed"][token_ids.long()].to(dt)
+        return x + params["pos"][None, start: start + s].to(dt)
+
+    def _hidden(
+        self, params: Params, token_ids: torch.Tensor,
+        token_mask: torch.Tensor | None = None,
+    ) -> tuple[torch.Tensor, dict]:
+        """token_ids [B, S] → final-LN hidden states [B, S, d]; aux scalars
+        averaged over layers.  ``token_mask`` [B, S] bool: False marks
+        padding that must not take part in MoE routing."""
+        x = self._embed(params, token_ids)
+        aux_total = None
+        for i in range(self.cfg.n_layers):
+            x, aux = self._layer(self._layer_params(params, i), x, token_mask)
+            aux_total = aux if aux_total is None else {
+                key: aux_total[key] + aux[key] for key in aux_total
+            }
+        x = layer_norm(params["ln_f"], x)
+        return x, {key: val / self.cfg.n_layers for key, val in aux_total.items()}
+
+    def _head(self, params: Params) -> torch.Tensor:
+        return (
+            params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
+        ).to(self.cfg.dtype)
+
+    @staticmethod
+    def _logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+        """f32 logits of compute-dtype operands: the operands are multiplied
+        in f32 (products of bf16 values are exact there), so the result is
+        a bf16 product with f32 accumulation and f32 output, as in the JAX
+        package.  A bf16 matmul would round the logits to bf16."""
+        return x.float() @ head.float()
+
+    def apply(
+        self, params: Params, token_ids: torch.Tensor,
+        token_mask: torch.Tensor | None = None,
+    ) -> tuple[torch.Tensor, dict]:
+        """token_ids [B, S] → logits [B, S, V] (f32); aux dict of scalars."""
+        x, aux_mean = self._hidden(params, token_ids, token_mask)
+        return self._logits(x, self._head(params)), aux_mean
+
+    def loss_fn(self, params: Params, token_ids, targets):
+        raise NotImplementedError(f"loss_fn is not ported yet: {TRAINING_ITEM}")
+
+    def make_train_step(self, optimizer, accum_steps: int = 1):
+        raise NotImplementedError(
+            f"make_train_step is not ported yet: {TRAINING_ITEM}"
+        )
+
+    # ---- autoregressive decoding ----
+
+    def decode_model(self) -> "DMoETransformerLM":
+        """The model to decode with: the same weights with eval-safe
+        routing.  Expert-choice gating falls back to token-choice top-k
+        over the same gate affinities, and router jitter is switched off,
+        as in the JAX package.  Memoized."""
+        cfg = self.cfg
+        changed = {}
+        if cfg.gating == "expert_choice":
+            logging.getLogger(__name__).warning(
+                "expert_choice routing is batch-dependent and cannot be "
+                "reproduced at autoregressive decode; falling back to "
+                "token-choice top-%d routing over the same gate affinities",
+                cfg.k,
+            )
+            changed["gating"] = "topk"
+        if cfg.router_jitter:
+            changed["router_jitter"] = 0.0
+        if not changed:
+            return self
+        if self._decode_model is None:
+            self._decode_model = DMoETransformerLM(
+                dataclasses.replace(cfg, **changed), self.device
+            )
+        return self._decode_model
+
+    @torch.no_grad()
+    def generate(
+        self,
+        params: Params,
+        prompt_ids: torch.Tensor,
+        max_new_tokens: int,
+        temperature: float = 0.0,
+        generator: torch.Generator | None = None,
+        use_cache: bool = False,
+    ) -> torch.Tensor:
+        """Greedy (or temperature-sampled) autoregressive decoding.
+
+        prompt_ids: [B, P] integer ids with P + max_new_tokens <= seq_len.
+        Returns [B, P + max_new_tokens] in the prompt's dtype.  Routing
+        follows :meth:`decode_model`.  ``use_cache=False`` re-runs the full
+        forward over the fixed-length buffer each step, with right padding
+        masked out of MoE routing; ``use_cache=True`` prefills a KV cache
+        on the prompt and then decodes one position per step, routing only
+        the B live tokens (see the JAX docstring for when the two agree).
+
+        Greedy decoding matches the JAX package token for token.
+        ``temperature > 0`` samples with ``generator`` (required), whose
+        stream is not JAX's threefry stream: sampled tokens are not
+        expected to match the JAX package's.
+        """
+        b, p = prompt_ids.shape
+        s = self.cfg.seq_len
+        if p == 0:
+            raise ValueError("prompt must have at least one token")
+        if p + max_new_tokens > s:
+            raise ValueError(
+                f"prompt ({p}) + max_new_tokens ({max_new_tokens}) exceeds "
+                f"seq_len {s}"
+            )
+        if max_new_tokens < 0:
+            raise ValueError(
+                f"max_new_tokens must be >= 0, got {max_new_tokens}"
+            )
+        if temperature < 0:
+            raise ValueError(f"temperature must be >= 0, got {temperature}")
+        if temperature > 0 and generator is None:
+            raise ValueError("temperature > 0 requires a torch.Generator")
+        if max_new_tokens == 0:
+            return prompt_ids
+        model = self.decode_model()
+        decode = model._generate_cached if use_cache else model._generate_full
+        return decode(
+            params, prompt_ids.to(model.device), max_new_tokens,
+            float(temperature), generator,
+        )
+
+    @staticmethod
+    def _sample(logits: torch.Tensor, temperature: float,
+                generator: torch.Generator | None) -> torch.Tensor:
+        """[B, V] f32 logits → [B] ids: argmax (ties to the lower index)
+        or a draw from softmax(logits / temperature)."""
+        if temperature > 0:
+            probs = torch.softmax(logits / temperature, dim=-1)
+            return torch.multinomial(probs, 1, generator=generator)[:, 0]
+        return torch.argmax(logits, dim=-1)
+
+    def _generate_full(self, params, prompt_ids, max_new_tokens,
+                       temperature, generator) -> torch.Tensor:
+        """Re-forward decoding: every step runs the full masked forward
+        over the fixed-length buffer."""
+        b, p = prompt_ids.shape
+        s = self.cfg.seq_len
+        buf = torch.zeros((b, s), dtype=prompt_ids.dtype, device=self.device)
+        buf[:, :p] = prompt_ids
+        positions = torch.arange(s, device=self.device)
+        for t in range(p - 1, p - 1 + max_new_tokens):
+            # positions <= t hold real tokens; the rest must not compete
+            # for expert capacity
+            valid = (positions[None, :] <= t).expand(b, s)
+            logits, _ = self.apply(params, buf, token_mask=valid)
+            nxt = self._sample(logits[:, t], temperature, generator)
+            buf[:, t + 1] = nxt.to(buf.dtype)
+        return buf[:, : p + max_new_tokens]
+
+    def _generate_cached(self, params, prompt_ids, max_new_tokens,
+                         temperature, generator) -> torch.Tensor:
+        """KV-cache decoding: prefill the caches on the prompt, then one
+        position per step.  The caches are updated in place (the JAX
+        version rebuilds them functionally; the values are the same)."""
+        cfg = self.cfg
+        b, p = prompt_ids.shape
+        s_cache = p + max_new_tokens
+        hd = cfg.d_model // cfg.n_heads
+        head = self._head(params)
+
+        # ---- prefill: full forward over the prompt, caches filled ----
+        x = self._embed(params, prompt_ids)
+        k_caches, v_caches = [], []
+        for i in range(cfg.n_layers):
+            lp = self._layer_params(params, i)
+            h = layer_norm(lp["ln1"], x)
+            q, k, v = qkv_projections(lp, h, cfg.n_heads)
+            x = x + output_projection(
+                lp, attention_core(q, k, v, cfg.attn_impl)
+            )
+            moe_in = layer_norm(lp["ln2"], x).reshape(b * p, cfg.d_model)
+            moe_out, _ = self.moe(lp["moe"], moe_in)
+            x = x + moe_out.reshape(b, p, cfg.d_model)
+            kc = torch.zeros(
+                (b, s_cache, cfg.n_heads, hd), dtype=k.dtype, device=self.device
+            )
+            vc = torch.zeros_like(kc)
+            kc[:, :p] = k
+            vc[:, :p] = v
+            k_caches.append(kc)
+            v_caches.append(vc)
+        x_last = layer_norm(params["ln_f"], x[:, -1:])
+        tok = self._sample(
+            self._logits(x_last, head)[:, 0], temperature, generator
+        )
+        out = [tok]
+
+        # ---- decode: one position per step ----
+        for t in range(p, p + max_new_tokens - 1):
+            x = self._embed(params, tok[:, None], start=t)  # [B, 1, d]
+            for i in range(cfg.n_layers):
+                lp = self._layer_params(params, i)
+                h = layer_norm(lp["ln1"], x)
+                q, k, v = qkv_projections(lp, h, cfg.n_heads)
+                k_caches[i][:, t] = k[:, 0]
+                v_caches[i][:, t] = v[:, 0]
+                x = x + one_query_attention(
+                    lp, q, k_caches[i], v_caches[i], t
+                )
+                moe_in = layer_norm(lp["ln2"], x).reshape(b, cfg.d_model)
+                moe_out, _ = self.moe(lp["moe"], moe_in)
+                x = x + moe_out.reshape(b, 1, cfg.d_model)
+            x = layer_norm(params["ln_f"], x)
+            tok = self._sample(
+                self._logits(x, head)[:, 0], temperature, generator
+            )
+            out.append(tok)
+        new = torch.stack(out, dim=1).to(prompt_ids.dtype)
+        return torch.cat([prompt_ids, new], dim=1)
