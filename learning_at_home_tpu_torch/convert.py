@@ -8,6 +8,10 @@ device; :func:`params_to_jax` is its inverse.  Both layouts convert: the
 stacked one (leading ``n_layers`` dim on every layer leaf) and the tuple
 of per-layer trees, with a tied or an untied head.  Values are copied bit
 for bit, bfloat16 included.
+
+:func:`opt_state_from_jax` and :func:`opt_state_to_jax` do the same for
+optimizer state: the fused Adafactor's ``(count, v_row, v_col, v)`` and
+``optax.adamw``'s ``(count, mu, nu)``, so training carries across.
 """
 
 from __future__ import annotations
@@ -16,6 +20,11 @@ import numpy as np
 import torch
 
 from learning_at_home_tpu_torch.device import resolve_device
+from learning_at_home_tpu_torch.ops.fused_adafactor import (
+    FusedAdafactorState,
+    state_shapes,
+)
+from learning_at_home_tpu_torch.optim import AdamWState
 
 
 def param_shapes(cfg) -> dict:
@@ -106,3 +115,69 @@ def params_to_jax(params, cfg):
     """The port's tree of tensors → the JAX package's layout as numpy
     arrays (``jax.device_put`` or ``jnp.asarray`` makes it a JAX tree)."""
     return _convert(params, param_shapes(cfg), "", _to_numpy)
+
+
+def _map_shapes(fn, shapes):
+    """``fn`` applied to every leaf shape of a :func:`param_shapes` tree."""
+    if isinstance(shapes, dict):
+        return {key: _map_shapes(fn, val) for key, val in shapes.items()}
+    if isinstance(shapes, tuple) and shapes and isinstance(shapes[0], dict):
+        return tuple(_map_shapes(fn, s) for s in shapes)
+    return fn(shapes)
+
+
+def _adafactor_shapes(cfg, field: int):
+    return _map_shapes(lambda s: state_shapes(s)[field], param_shapes(cfg))
+
+
+def opt_state_from_jax(state, cfg, device=None):
+    """The JAX package's optimizer state (numpy leaves) → the port's.
+
+    ``state`` is a ``FusedAdafactorState`` of ``ops/fused_adafactor.py``
+    (default factoring: the two largest dims of each leaf of rank >= 2
+    with the second largest >= 128) or ``optax.adamw``'s state (the
+    chain's tuple, or its ``ScaleByAdamState``); the matching port state
+    (``FusedAdafactorState`` or ``optim.AdamWState``) comes back on
+    ``device`` (None: the CUDA card)."""
+    dev = resolve_device(device)
+
+    def conv(tree, shapes, path):
+        return _convert(tree, shapes, path, lambda a: _to_tensor(a, dev))
+
+    if hasattr(state, "v_row"):
+        return FusedAdafactorState(
+            count=conv(state.count, (), "count"),
+            v_row=conv(state.v_row, _adafactor_shapes(cfg, 0), "v_row"),
+            v_col=conv(state.v_col, _adafactor_shapes(cfg, 1), "v_col"),
+            v=conv(state.v, _adafactor_shapes(cfg, 2), "v"),
+        )
+    adam = state if hasattr(state, "mu") else next(
+        (s for s in state if hasattr(s, "mu")), None)
+    if adam is None:
+        raise ValueError(
+            f"not a fused-Adafactor or an adamw state: {type(state).__name__}")
+    shapes = param_shapes(cfg)
+    return AdamWState(count=conv(adam.count, (), "count"),
+                      mu=conv(adam.mu, shapes, "mu"),
+                      nu=conv(adam.nu, shapes, "nu"))
+
+
+def opt_state_to_jax(state, cfg) -> tuple:
+    """The port's optimizer state → the fields of the JAX state, in order,
+    as numpy: ``(count, v_row, v_col, v)`` for the fused Adafactor (wrap
+    them in its ``FusedAdafactorState``), ``(count, mu, nu)`` for adamw
+    (optax's ``ScaleByAdamState``, the first entry of ``optax.adamw``'s
+    chain state)."""
+    if isinstance(state, FusedAdafactorState):
+        return (_convert(state.count, (), "count", _to_numpy),
+                _convert(state.v_row, _adafactor_shapes(cfg, 0), "v_row",
+                         _to_numpy),
+                _convert(state.v_col, _adafactor_shapes(cfg, 1), "v_col",
+                         _to_numpy),
+                _convert(state.v, _adafactor_shapes(cfg, 2), "v", _to_numpy))
+    if isinstance(state, AdamWState):
+        shapes = param_shapes(cfg)
+        return (_convert(state.count, (), "count", _to_numpy),
+                _convert(state.mu, shapes, "mu", _to_numpy),
+                _convert(state.nu, shapes, "nu", _to_numpy))
+    raise ValueError(f"not a port optimizer state: {type(state).__name__}")

@@ -1,25 +1,29 @@
-"""DMoE-Transformer language model in pod mode: forward and serving.
+"""DMoE-Transformer language model in pod mode: forward, serving, training.
 
 The PyTorch counterpart of ``learning_at_home_tpu/models/transformer.py``
-for its serving path: a causal Transformer LM whose FFNs are mixtures of
-experts on one device (``parallel/sharded_moe.py``), with the full
-re-forward decoder and the KV-cache decoder of ``generate``.
+for one device: a causal Transformer LM whose FFNs are mixtures of
+experts (``parallel/sharded_moe.py``), with the full re-forward decoder
+and the KV-cache decoder of ``generate``, the loss (the chunked
+cross-entropy, or the fused one of ``ops/fused_ce.py`` with its Hopper
+kernels), per-layer remat and the train step with gradient accumulation.
 
 Parameters are an explicit tree of tensors with the JAX package's names,
 shapes and layouts (stacked layers with a leading ``n_layers`` dim, or a
 tuple of per-layer trees), so converted checkpoints (``convert.py``)
-compare leaf by leaf.  Training (``loss_fn``, the train step, remat, the
-fused cross-entropy) and sequence parallelism are not ported yet; they
-raise ``NotImplementedError`` naming the ROADMAP.md item that ports them.
+compare leaf by leaf.  Sequence parallelism, remat policy ``"dots"``,
+router jitter and expert-choice gating are not ported yet; they raise
+``NotImplementedError`` naming the ROADMAP.md item that ports them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
-from typing import Any
+from typing import Any, Callable
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from learning_at_home_tpu_torch.device import resolve_device
 from learning_at_home_tpu_torch.initializers import lecun_normal, normal
@@ -31,13 +35,17 @@ from learning_at_home_tpu_torch.models.trunk import (
     output_projection,
     qkv_projections,
 )
+from learning_at_home_tpu_torch.ops.fused_ce import _check, fused_softmax_ce
+from learning_at_home_tpu_torch.optim import apply_updates
 from learning_at_home_tpu_torch.parallel.sharded_moe import (
     ShardedMixtureOfExperts,
 )
+from learning_at_home_tpu_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 Params = Any
 
-TRAINING_ITEM = "ROADMAP.md, port queue item 2 (the pod-mode train step)"
+TRAINING_ITEM = ("ROADMAP.md, port queue item 2 (what remains of the pod-mode "
+                 "train step)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,12 +121,14 @@ class DMoETransformerLM:
                 f"seq_parallel (ring attention) is not ported yet: "
                 f"{TRAINING_ITEM}"
             )
-        if config.remat:
-            raise NotImplementedError(f"remat is training-only: {TRAINING_ITEM}")
-        if config.ce_impl == "fused":
-            raise NotImplementedError(
-                f"ce_impl='fused' (kernels K1-K3) is not ported yet: "
-                f"{TRAINING_ITEM}"
+        if config.remat and config.remat_policy != "full":
+            if config.remat_policy == "dots":
+                raise NotImplementedError(
+                    f"remat_policy='dots' is not ported yet: {TRAINING_ITEM}"
+                )
+            raise ValueError(
+                f"remat_policy must be 'full' or 'dots', got "
+                f"{config.remat_policy!r}"
             )
         self.cfg = config
         self._decode_model: "DMoETransformerLM | None" = None
@@ -204,7 +214,8 @@ class DMoETransformerLM:
         ``start ..``, in the compute dtype."""
         dt = self.cfg.dtype
         s = token_ids.shape[1]
-        x = params["embed"][token_ids.long()].to(dt)
+        # F.embedding: its backward sums repeated tokens in parallel
+        x = F.embedding(token_ids.long(), params["embed"]).to(dt)
         return x + params["pos"][None, start: start + s].to(dt)
 
     def _hidden(
@@ -217,7 +228,14 @@ class DMoETransformerLM:
         x = self._embed(params, token_ids)
         aux_total = None
         for i in range(self.cfg.n_layers):
-            x, aux = self._layer(self._layer_params(params, i), x, token_mask)
+            lp = self._layer_params(params, i)
+            if self.cfg.remat:
+                # "full": keep only the layer's input; the backward
+                # recomputes everything inside it
+                x, aux = checkpoint(self._layer, lp, x, token_mask,
+                                    use_reentrant=False)
+            else:
+                x, aux = self._layer(lp, x, token_mask)
             aux_total = aux if aux_total is None else {
                 key: aux_total[key] + aux[key] for key in aux_total
             }
@@ -245,13 +263,141 @@ class DMoETransformerLM:
         x, aux_mean = self._hidden(params, token_ids, token_mask)
         return self._logits(x, self._head(params)), aux_mean
 
-    def loss_fn(self, params: Params, token_ids, targets):
-        raise NotImplementedError(f"loss_fn is not ported yet: {TRAINING_ITEM}")
+    # ---- loss / train step ----
 
-    def make_train_step(self, optimizer, accum_steps: int = 1):
-        raise NotImplementedError(
-            f"make_train_step is not ported yet: {TRAINING_ITEM}"
+    def _fused_ce_or_none(self, head, flat_x, flat_t, n):
+        """Mean CE through the fused kernels (``ops/fused_ce.py``) when
+        ``ce_impl="fused"`` and their preconditions hold, else None and the
+        caller runs the chunked CE (never a full [n, V] logits buffer).
+        One device: the JAX package's single-device branch."""
+        if self.cfg.ce_impl != "fused":
+            return None
+        bn, bv = self.cfg.ce_block_n, self.cfg.ce_block_v
+        if _check(flat_x, head, flat_t, bn, bv) is not None:
+            return None
+        return fused_softmax_ce(flat_x, head, flat_t, bn, bv).sum() / n
+
+    def _chunk_ce_sum(self, xc, head, tc):
+        """Summed softmax CE of one token chunk against its targets."""
+        logits = self._logits(xc, head)
+        picked = torch.gather(logits, 1, tc.long()[:, None])[:, 0]
+        return (torch.logsumexp(logits, dim=-1) - picked).sum()
+
+    def loss_fn(self, params: Params, token_ids: torch.Tensor,
+                targets: torch.Tensor) -> tuple[torch.Tensor, dict]:
+        """Mean next-token CE plus the weighted router losses; metrics
+        ``ce``, ``aux_loss``, ``router_z_loss``, ``dropped_fraction``.
+
+        The chunked CE runs the head and softmax-CE over ``ce_chunk``
+        tokens at a time, each under ``torch.utils.checkpoint``, so at most
+        one [chunk, V] f32 logits buffer is live and the backward
+        recomputes each chunk's logits; a sub-chunk remainder is one more
+        checkpointed chunk.  ``ce_impl="fused"`` keeps logits out of
+        memory altogether when the kernels' preconditions hold."""
+        x, aux = self._hidden(params, token_ids)
+        head = self._head(params)
+        n = x.shape[0] * x.shape[1]
+        flat_x = x.reshape(n, x.shape[-1])
+        flat_t = targets.reshape(n)
+
+        ce = self._fused_ce_or_none(head, flat_x, flat_t, n)
+        if ce is None:
+            chunk = min(self.cfg.ce_chunk, n)
+            ce_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+            for start in range(0, n, chunk):
+                ce_sum = ce_sum + checkpoint(
+                    self._chunk_ce_sum, flat_x[start: start + chunk], head,
+                    flat_t[start: start + chunk], use_reentrant=False,
+                )
+            ce = ce_sum / n
+        loss = (
+            ce
+            + self.cfg.aux_loss_weight * aux["aux_loss"]
+            + self.cfg.router_z_weight * aux["router_z_loss"]
         )
+        return loss, {"ce": ce, **aux}
+
+    def value_and_grad(self, params: Params, token_ids: torch.Tensor,
+                       targets: torch.Tensor):
+        """``((loss, metrics), grads)`` of :meth:`loss_fn`, with ``grads`` a
+        tree shaped like ``params`` (zeros for an unused leaf), as
+        ``jax.value_and_grad(loss_fn, has_aux=True)`` gives them.  The
+        parameters themselves are not marked as requiring gradients."""
+        with torch.enable_grad():
+            live = tree_map(lambda t: t.detach().requires_grad_(True), params)
+            loss, metrics = self.loss_fn(live, token_ids, targets)
+            grads = torch.autograd.grad(
+                loss, tree_leaves(live), allow_unused=True,
+                materialize_grads=True,
+            )
+        metrics = {key: val.detach() for key, val in metrics.items()}
+        return (loss.detach(), metrics), tree_unflatten(params, grads)
+
+    def init_opt_state(self, optimizer, params: Params):
+        """The optimizer's initial state for ``params`` (on their device)."""
+        return optimizer.init(params)
+
+    def make_train_step(self, optimizer, accum_steps: int = 1) -> Callable:
+        """``step(params, opt_state, token_ids, targets) -> (params,
+        opt_state, loss, metrics)``.
+
+        ``optimizer`` follows the optax contract (``optim.adamw``,
+        ``ops.fused_adafactor.fused_adafactor``); one with ``apply_fused``
+        folds the parameter add into its own pass.  Parameters are updated
+        in place (the counterpart of the JAX step's buffer donation), so
+        the returned tree is the one passed in.
+
+        ``accum_steps > 1`` takes token_ids/targets of shape [accum, batch,
+        seq], runs the microbatches one after another, sums their
+        gradients in f32, applies ONE update with the mean, and averages
+        loss and metrics."""
+        if accum_steps < 1:
+            raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+        apply_fn = getattr(optimizer, "apply_fused", None)
+        if apply_fn is None:
+            def apply_fn(params, grads, opt_state):
+                # optax transforms expect grads in the param dtype
+                grads = tree_map(lambda g, p: g.to(p.dtype), grads, params)
+                updates, opt_state = optimizer.update(grads, opt_state, params)
+                return apply_updates(params, updates), opt_state
+
+        def train_step(params, opt_state, token_ids, targets):
+            token_ids, targets = token_ids.to(self.device), targets.to(self.device)
+            (loss, metrics), grads = self.value_and_grad(params, token_ids,
+                                                         targets)
+            params, opt_state = apply_fn(params, grads, opt_state)
+            return params, opt_state, loss, metrics
+
+        def accum_step(params, opt_state, token_ids, targets):
+            if token_ids.shape[0] != accum_steps:
+                raise ValueError(
+                    f"token_ids must lead with the {accum_steps} microbatches, "
+                    f"got shape {tuple(token_ids.shape)}"
+                )
+            token_ids, targets = token_ids.to(self.device), targets.to(self.device)
+            # accumulate in f32: bf16 microbatch grads summed in bf16 lose
+            # precision to swamping as accum_steps grows
+            gsum = tree_map(
+                lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                      device=p.device), params)
+            lsum, msum = torch.zeros((), device=self.device), None
+            for i in range(accum_steps):
+                (loss, metrics), grads = self.value_and_grad(
+                    params, token_ids[i], targets[i])
+                tree_map(lambda a, g: a.add_(g), gsum, grads)
+                del grads
+                lsum = lsum + loss
+                msum = metrics if msum is None else {
+                    key: msum[key] + val for key, val in metrics.items()}
+            inv = 1.0 / accum_steps
+            # stay f32: the fused optimizer consumes f32 grads directly; the
+            # optax-contract path casts to the param dtype itself
+            grads = tree_map(lambda g: g.mul_(inv), gsum)
+            params, opt_state = apply_fn(params, grads, opt_state)
+            metrics = {key: val * inv for key, val in msum.items()}
+            return params, opt_state, lsum * inv, metrics
+
+        return accum_step if accum_steps > 1 else train_step
 
     # ---- autoregressive decoding ----
 

@@ -27,7 +27,10 @@ NVCC_FLAGS = (
 # where the CUDA toolkit puts nvcc when it is not on PATH
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 # library name -> its sources under csrc/
-LIBRARIES = {"flash_attn_fwd": ("flash_attn_fwd.cu",)}
+LIBRARIES = {
+    "flash_attn_fwd": ("flash_attn_fwd.cu",),
+    "fused_ce": ("fused_ce.cu",),
+}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 # library name -> nvcc's stderr (the ptxas report), for the libraries this

@@ -1,0 +1,295 @@
+"""Fused softmax cross-entropy: the Hopper kernels K1-K3 and their plain twins.
+
+The PyTorch counterpart of ``learning_at_home_tpu/ops/fused_ce.py``.  The
+per-row softmax cross-entropy of ``x @ head`` against integer targets is
+computed without ever writing the [n, V] logits to device memory:
+
+- forward (K1, :func:`ce_forward`): one pass over vocab tiles keeps a
+  running max, sum of exp and target logit per row and writes only
+  ``ce [n]`` and the residual ``lse [n]``;
+- backward (K2, :func:`ce_dx`, and K3, :func:`ce_dhead`): each recomputes
+  the logits tiles from (x, head, lse) and feeds
+  ``dl = (softmax - onehot) * dce`` straight into its product, dx
+  accumulating over vocab tiles and dhead over row tiles.
+
+On a CUDA tensor each wrapper launches its kernel in
+``csrc/fused_ce.cu`` (bf16 operands, D in {128, 256, 384, 512}) or
+raises; on a CPU tensor it computes its plain version
+(:func:`ce_fwd_reference`, :func:`ce_dx_reference`,
+:func:`ce_dhead_reference`), the same function written with the logits
+materialised.  :class:`FusedSoftmaxCE` ties them into one autograd
+function whose forward is K1 and whose backward is K2 then K3, so the
+CPU tests exercise the same custom backward the kernels implement.
+
+A target outside ``[0, V)`` picks no logit (``ce = lse``) and adds no
+one-hot term, as in the JAX kernels.  ``block_n``/``block_v`` are the
+TPU tiles: they only decide, through :func:`_check`, which shapes take
+the fused path (the same predicate as the JAX package); the Hopper
+kernels tile 64 x 64 themselves.  The kernels read the head as
+``head.t()``, [V, D] with D contiguous: the tied head ``embed.T`` is read
+in place, any other layout is copied once per call.
+
+What bounds the kernels on the H100 and how they are built: see the
+source's header comment.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+DEFAULT_BLOCK_N = 128
+DEFAULT_BLOCK_V = 1024
+KERNEL_D = (128, 256, 384, 512)  # the hidden sizes the kernels are built for
+KERNEL_TILE = 64  # rows per tile on both sides of the Hopper kernels
+
+
+def _check(x, head, targets, block_n, block_v) -> str | None:
+    """The fused path's preconditions, as in the JAX package: None when
+    they hold, else the reason (and callers fall back)."""
+    n, d = x.shape
+    d2, v = head.shape
+    if d != d2:
+        return f"x d={d} vs head d={d2}"
+    if tuple(targets.shape) != (n,):
+        return f"targets shape {tuple(targets.shape)} != ({n},)"
+    if n % block_n or v % block_v:
+        return f"n={n} % {block_n} or V={v} % {block_v} != 0"
+    if d % 128:
+        return f"d={d} % 128 != 0 (lane dim)"
+    if block_v % 128:
+        return f"block_v={block_v} % 128 != 0 (lane dim of the logits tile)"
+    if block_n % 8:
+        return f"block_n={block_n} % 8 != 0 (sublane dim)"
+    return None
+
+
+# ---- plain versions ----
+
+
+def ce_fwd_reference(x: torch.Tensor, head: torch.Tensor,
+                     targets: torch.Tensor):
+    """K1's function written plainly: f32 logits of the operands as given,
+    ``lse`` by ``logsumexp``, ``ce = lse - logits[target]`` (0 picked for a
+    target outside [0, V)).  Returns ``(ce, lse)``, both f32 [n];
+    differentiable in x and head."""
+    logits = x.float() @ head.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    v = head.shape[1]
+    valid = (targets >= 0) & (targets < v)
+    picked = torch.gather(
+        logits, 1, targets.long().clamp(0, v - 1)[:, None])[:, 0]
+    return lse - torch.where(valid, picked, torch.zeros_like(picked)), lse
+
+
+def _dlogits(x, head, targets, lse, dce) -> torch.Tensor:
+    """``(exp(x @ head - lse) - onehot) * dce`` in f32, [n, V]; a target
+    outside [0, V) adds no one-hot term."""
+    dl = torch.exp(x.float() @ head.float() - lse.float()[:, None])
+    valid = (targets >= 0) & (targets < head.shape[1])
+    rows = torch.arange(x.shape[0], device=x.device)[valid]
+    dl[rows, targets.long()[valid]] -= 1.0
+    return dl * dce.float()[:, None]
+
+
+def ce_dx_reference(x, head, targets, lse, dce) -> torch.Tensor:
+    """K2's function: ``((exp(x@head - lse) - onehot) * dce) @ head^T`` in
+    f32, cast to x's dtype."""
+    return (_dlogits(x, head, targets, lse, dce) @ head.float().T).to(x.dtype)
+
+
+def ce_dhead_reference(x, head, targets, lse, dce) -> torch.Tensor:
+    """K3's function: ``x^T @ ((exp(x@head - lse) - onehot) * dce)`` in
+    f32, cast to head's dtype."""
+    return (x.float().T @ _dlogits(x, head, targets, lse, dce)).to(head.dtype)
+
+
+# ---- kernel wrappers ----
+
+
+def _functions():
+    from learning_at_home_tpu_torch.ops.build import load_library
+
+    lib = load_library("fused_ce")
+    fwd, dx, dhead = (lib.lah_fused_ce_fwd_bf16, lib.lah_fused_ce_dx_bf16,
+                      lib.lah_fused_ce_dhead_bf16)
+    if fwd.argtypes is None:
+        p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        fwd.argtypes = [p, i64, p, i64, p, p, p, i32, i32, i32, p]
+        dx.argtypes = [p, i64, p, i64, p, p, p, p, i64, i32, i32, i32, p]
+        dhead.argtypes = dx.argtypes
+        for fn in (fwd, dx, dhead):
+            fn.restype = ctypes.c_int
+    return fwd, dx, dhead
+
+
+def _row_major(name: str, t: torch.Tensor) -> None:
+    if t.stride(1) != 1 or t.stride(0) % 8 or t.data_ptr() % 16:
+        raise ValueError(
+            f"{name} needs a contiguous last dim, a row stride that is a "
+            f"multiple of 8 elements and 16-byte alignment, got strides "
+            f"{t.stride()}")
+
+
+def _cuda_operands(x, head, targets, *rows):
+    """Validate the kernels' inputs; returns (w = head^T [V, D] with D
+    contiguous, int32 targets, contiguous f32 row vectors)."""
+    if x.dim() != 2 or head.dim() != 2 or x.shape[1] != head.shape[0]:
+        raise ValueError(f"x [n, D] and head [D, V] expected, got "
+                         f"{tuple(x.shape)} and {tuple(head.shape)}")
+    for name, t in (("x", x), ("head", head)):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(
+                f"the fused-CE kernels take bfloat16, {name} is {t.dtype}")
+    for name, t in (("head", head), ("targets", targets),
+                    *(("row vector", r) for r in rows)):
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    n, d = x.shape
+    v = head.shape[1]
+    if d not in KERNEL_D:
+        raise ValueError(
+            f"the fused-CE kernels are built for D in {KERNEL_D}, got {d}")
+    if v % KERNEL_TILE or v == 0:
+        raise ValueError(
+            f"the fused-CE kernels need V % {KERNEL_TILE} == 0, got {v}")
+    if tuple(targets.shape) != (n,):
+        raise ValueError(f"targets must be [{n}], got {tuple(targets.shape)}")
+    w = head.t()
+    if w.stride(1) != 1:  # an untied [D, V] head: one copy, [V, D]
+        w = w.contiguous()
+    _row_major("x", x)
+    _row_major("head^T", w)
+    targets = targets.to(torch.int32).contiguous()
+    rows = [r.float().contiguous() for r in rows]
+    return w, targets, rows
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def _on_cpu(x: torch.Tensor, name: str) -> bool:
+    if x.device.type == "cpu":
+        return True
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, not {x.device}")
+    return False
+
+
+def ce_forward(x: torch.Tensor, head: torch.Tensor, targets: torch.Tensor):
+    """K1: ``(ce, lse)`` f32 [n] of ``x [n, D] @ head [D, V]`` against
+    ``targets [n]``.  CPU tensors take :func:`ce_fwd_reference`; CUDA
+    tensors launch the kernel (``ce_forward.launches`` counts them)."""
+    if _on_cpu(x, "ce_forward"):
+        with torch.no_grad():
+            return ce_fwd_reference(x, head, targets)
+    w, tgt, _ = _cuda_operands(x, head, targets)
+    n, d = x.shape
+    ce = torch.empty(n, dtype=torch.float32, device=x.device)
+    lse = torch.empty_like(ce)
+    if n:
+        fwd, _, _ = _functions()
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            _raise_on(fwd(x.data_ptr(), x.stride(0), w.data_ptr(), w.stride(0),
+                          tgt.data_ptr(), ce.data_ptr(), lse.data_ptr(), n,
+                          w.shape[0], d, stream), "fused_ce_fwd")
+        ce_forward.launches += 1
+    return ce, lse
+
+
+def ce_dx(x, head, targets, lse, dce) -> torch.Tensor:
+    """K2: dx [n, D] in x's dtype.  CPU tensors take
+    :func:`ce_dx_reference`; CUDA tensors launch the kernel
+    (``ce_dx.launches``)."""
+    if _on_cpu(x, "ce_dx"):
+        return ce_dx_reference(x, head, targets, lse, dce)
+    w, tgt, (lse, dce) = _cuda_operands(x, head, targets, lse, dce)
+    n, d = x.shape
+    dx = torch.empty((n, d), dtype=x.dtype, device=x.device)
+    if n:
+        _, fn, _ = _functions()
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            _raise_on(fn(x.data_ptr(), x.stride(0), w.data_ptr(), w.stride(0),
+                         tgt.data_ptr(), lse.data_ptr(), dce.data_ptr(),
+                         dx.data_ptr(), dx.stride(0), n, w.shape[0], d,
+                         stream), "fused_ce_dx")
+        ce_dx.launches += 1
+    return dx
+
+
+def ce_dhead(x, head, targets, lse, dce) -> torch.Tensor:
+    """K3: dhead [D, V] in head's dtype (on CUDA, the transpose of a
+    contiguous [V, D] tensor).  CPU tensors take
+    :func:`ce_dhead_reference`; CUDA tensors launch the kernel
+    (``ce_dhead.launches``)."""
+    if _on_cpu(x, "ce_dhead"):
+        return ce_dhead_reference(x, head, targets, lse, dce)
+    w, tgt, (lse, dce) = _cuda_operands(x, head, targets, lse, dce)
+    n, d = x.shape
+    dw = torch.empty((w.shape[0], d), dtype=head.dtype, device=x.device)
+    if n:
+        _, _, fn = _functions()
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            _raise_on(fn(x.data_ptr(), x.stride(0), w.data_ptr(), w.stride(0),
+                         tgt.data_ptr(), lse.data_ptr(), dce.data_ptr(),
+                         dw.data_ptr(), dw.stride(0), n, w.shape[0], d,
+                         stream), "fused_ce_dhead")
+        ce_dhead.launches += 1
+    return dw.t()
+
+
+ce_forward.launches = 0
+ce_dx.launches = 0
+ce_dhead.launches = 0
+
+
+# ---- autograd ----
+
+
+class FusedSoftmaxCE(torch.autograd.Function):
+    """ce [n] f32 of ``x @ head`` against ``targets``: forward K1 (saves
+    ``lse``), backward K2 then K3.  Targets get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, head, targets):
+        ce, lse = ce_forward(x, head, targets)
+        ctx.save_for_backward(x, head, targets, lse)
+        return ce
+
+    @staticmethod
+    def backward(ctx, dce):
+        x, head, targets, lse = ctx.saved_tensors
+        dce = dce.float().contiguous()
+        dx = dhead = None
+        if ctx.needs_input_grad[0]:
+            dx = ce_dx(x, head, targets, lse, dce)
+        if ctx.needs_input_grad[1]:
+            dhead = ce_dhead(x, head, targets, lse, dce)
+        return dx, dhead, None
+
+
+def fused_softmax_ce(x: torch.Tensor, head: torch.Tensor,
+                     targets: torch.Tensor, block_n: int = DEFAULT_BLOCK_N,
+                     block_v: int = DEFAULT_BLOCK_V) -> torch.Tensor:
+    """Per-row softmax CE of ``x [n, D] @ head [D, V]`` against integer
+    ``targets [n]`` → ce [n] f32, differentiable in x and head.  Raises
+    ValueError when :func:`_check` refuses the shapes."""
+    err = _check(x, head, targets, block_n, block_v)
+    if err:
+        raise ValueError(f"fused_softmax_ce: {err}")
+    return FusedSoftmaxCE.apply(x, head, targets)
+
+
+def fused_softmax_ce_auto(x: torch.Tensor, head: torch.Tensor,
+                          targets: torch.Tensor) -> torch.Tensor:
+    """The fused path when its preconditions hold at the default blocks,
+    else one materialised f32-logits CE with the same semantics."""
+    if _check(x, head, targets, DEFAULT_BLOCK_N, DEFAULT_BLOCK_V) is None:
+        return fused_softmax_ce(x, head, targets)
+    return ce_fwd_reference(x, head, targets)[0]

@@ -1,0 +1,93 @@
+#!/usr/bin/env python3
+"""Where the port's training time goes on one CUDA card.
+
+Builds ``flagship-train`` (as in ``chip_smoke.py``: the 256-expert
+DMoE-Transformer at seq_len 256 with bf16 params, remat "full", the
+per-layer tuple layout, the fused CE and fused Adafactor 1e-3, batch 176,
+random weights from a seed), takes two warm-up steps on one fixed batch,
+then traces ``--steps`` more with ``torch.profiler``.  It prints, per
+step, the wall time, the summed device time of the kernels, the device's
+busy share (summed kernel time over wall time; the port runs on one
+stream, so kernels do not overlap), the device time by kind of kernel and
+the kernels that take the most device time.
+
+    python3 profile_training.py [--steps 2] [--top 15] [--trace-dir traces]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import sys
+from pathlib import Path
+
+import torch
+
+from chip_smoke import TRAIN_BATCH, build_flagship_train, card_line
+from profile_serving import report, traced
+
+# kernel name patterns, first match wins
+KINDS = [
+    ("fused CE (K1-K3)", r"fused_ce_kernel"),
+    ("scan (routing cumsum)", r"scan"),
+    ("matmul (cuBLAS)", r"gemm|nvjet|xmma|cutlass|sm90_"),
+    ("reduce", r"reduce|Reduce|norm"),
+    ("copy / cast", r"copy|Copy|Memcpy|Memset|cast"),
+    ("index / scatter / gather", r"index|scatter|gather|Index|Scatter|Gather"),
+    ("elementwise", r"elementwise|Elementwise|vectorized|unrolled"),
+]
+
+
+def kind_of(name: str) -> str:
+    for kind, pattern in KINDS:
+        if re.search(pattern, name):
+            return kind
+    return "other"
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=2)
+    ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--trace-dir", type=Path, default=None,
+                    help="write a chrome trace of the traced steps here")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_training: no CUDA device is available", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    model, params, _, opt_state, step, ids, tgt = build_flagship_train()
+    state = {"params": params, "opt_state": opt_state}
+
+    def run(n):
+        for _ in range(n):
+            state["params"], state["opt_state"], _, _ = step(
+                state["params"], state["opt_state"], ids, tgt)
+
+    run(2)  # warm-up: cuBLAS handles, the kernel library, the allocator
+    path = None
+    if args.trace_dir is not None:
+        args.trace_dir.mkdir(parents=True, exist_ok=True)
+        path = args.trace_dir / "training_step.trace.json"
+    wall_ms, rows = traced(lambda: run(args.steps), path)
+    print(f"{card_line()}; flagship-train, batch {TRAIN_BATCH} x "
+          f"{model.cfg.seq_len} tokens")
+    out = report(f"train step (mean of {args.steps})", wall_ms, rows,
+                 args.top, per=args.steps)
+    kinds: dict[str, float] = {}
+    for name, (ms, _) in out["kernels"].items():
+        kinds[kind_of(name)] = kinds.get(kind_of(name), 0.0) + ms
+    print("-- device time per step by kind of kernel")
+    for kind, ms in sorted(kinds.items(), key=lambda kv: -kv[1]):
+        print(f"   {ms:9.3f} ms {100 * ms / out['kernel_ms']:5.1f} %  {kind}")
+    print(json.dumps({"train_step": {"wall_ms": out["wall_ms"],
+                                     "kernel_ms": out["kernel_ms"],
+                                     "by_kind_ms": kinds}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -11,7 +11,8 @@ import pytest
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "learning_at_home_tpu")
 PORT_FILES = sorted((REPO / "learning_at_home_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "profile_serving.py"
+    REPO / "chip_smoke.py", REPO / "profile_serving.py",
+    REPO / "profile_training.py",
 ]
 
 

@@ -162,6 +162,45 @@ def test_moe_forward_matches_jax(impl, masked):
         assert torch.all(ty[~_t(mask)] == 0)
 
 
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("impl", ["onehot", "gather"])
+def test_moe_gradients_match_jax(impl, masked):
+    """Autograd through the port's routing gives JAX's gradients for the
+    gate, every expert weight and the tokens: through the argmax-pass
+    top-k weights, the renormalising clamp and (gather form) the masked
+    gather.  Capacity factor 1.0 drops choices, so dropped and kept
+    paths both carry gradients."""
+    d, e, n = 16, 4, 24
+    rng = np.random.default_rng(11)
+    params = _moe_params(rng, d, e, 4 * d)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    mask = (rng.random(n) > 0.25) if masked else None
+    w = rng.standard_normal((n, d)).astype(np.float32)  # output cotangent
+    kw = dict(hidden_dim=d, num_experts=e, k=2, capacity_factor=1.0,
+              dtype=jnp.float32, dispatch_impl=impl)
+    jmoe = JaxMoE(make_mesh({"expert": 1}, devices=jax.devices()[:1]), **kw)
+    kw["dtype"] = torch.float32
+    tmoe = TorchMoE(**kw)
+    jmask = None if mask is None else jnp.asarray(mask)
+
+    def jloss(p, x):
+        y, aux = jmoe(p, x, token_mask=jmask)
+        return ((y * w).sum() + aux["aux_loss"] + aux["router_z_loss"])
+
+    jgp, jgx = jax.jit(jax.grad(jloss, argnums=(0, 1)))(
+        {k: jnp.asarray(a) for k, a in params.items()}, jnp.asarray(x))
+    tp = {k: _t(a).requires_grad_(True) for k, a in params.items()}
+    tx = _t(x).requires_grad_(True)
+    y, aux = tmoe(tp, tx, token_mask=None if mask is None else _t(mask))
+    loss = (y * _t(w)).sum() + aux["aux_loss"] + aux["router_z_loss"]
+    grads = torch.autograd.grad(loss, [*tp.values(), tx])
+    assert float(tmoe(tp, tx)[1]["dropped_fraction"]) > 0
+    for name, g in zip([*tp, "x"], grads):
+        want = _np(jgx) if name == "x" else _np(jgp[name])
+        np.testing.assert_allclose(g.numpy(), want, atol=1e-5, rtol=1e-5,
+                                   err_msg=name)
+
+
 def test_moe_init_params_layout():
     moe = TorchMoE(hidden_dim=8, num_experts=4, param_dtype=torch.float32)
     g = torch.Generator().manual_seed(0)

@@ -203,20 +203,11 @@ def test_auto_attention_rule(seq_len, device, want):
     assert DMoETransformerLM(cfg, device=device).cfg.attn_impl == want
 
 
-@pytest.mark.parametrize("over", [dict(seq_parallel=True), dict(remat=True),
-                                  dict(ce_impl="fused")])
+@pytest.mark.parametrize("over", [dict(seq_parallel=True)])
 def test_unported_training_features_raise(over):
     cfg = DMoETransformerConfig(**TINY, dtype=torch.float32, **over)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DMoETransformerLM(cfg, device="cpu")
-
-
-def test_unported_train_entry_points_raise(pairs):
-    model = pairs["stacked"].tmodel
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.loss_fn(None, None, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.make_train_step(None)
 
 
 @pytest.mark.parametrize("over", [dict(router_jitter=0.2),
