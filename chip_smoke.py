@@ -35,10 +35,20 @@ Phases, each of which asserts (none catches its own failure):
                loss must be finite and fall, each CE kernel must launch
                once per step; the fused loss and embedding gradient must
                match the chunked CE's on one batch.
-7. timings  -- CUDA-event medians of each kernel, its plain version and
-               the PyTorch call computing the same function (SDPA for
-               attention; for K1-K3, which no single call computes, the
-               cuBLAS product ``x @ head`` of K1's shape as a yardstick).
+7. long-context training -- ``flagship-8k-train`` (the same recipe at
+               seq_len 8192, batch 4: the ``auto`` rule picks the flash
+               kernels, forward and backward) the same way; each step must
+               launch the flash forward 8 times (4 layers and their remat
+               recompute), the dkv and dq kernels 4 times each and K1-K3
+               once each; on one batch of 1 row the loss and every
+               gradient leaf must agree with plain attention on the same
+               weights, and no leaf's gradient may be all zeros.
+8. timings  -- CUDA-event medians of each kernel, its plain version and
+               the PyTorch call computing the same function (SDPA for the
+               attention forward; for K1-K3 and the attention backward,
+               which no single call computes kernel by kernel, a
+               yardstick: the cuBLAS product ``x @ head`` of K1's shape,
+               and SDPA's backward of dq, dk and dv together).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA card or
@@ -87,10 +97,21 @@ FLAGSHIP_TRAIN = dict(
     ce_impl="fused",
 )
 TRAIN_BATCH = 176
+# flagship-train at the long context (8192 = the flagship-8k serving
+# length): batch 4, 32,768 tokens a step, is this configuration's choice
+# (the repo publishes no long-context batch); expert capacity 320
+FLAGSHIP_8K_TRAIN = dict(FLAGSHIP_TRAIN, seq_len=8192)
+TRAIN_8K_BATCH = 4
+TRAINING = {
+    "flagship-train": (FLAGSHIP_TRAIN, TRAIN_BATCH),
+    "flagship-8k-train": (FLAGSHIP_8K_TRAIN, TRAIN_8K_BATCH),
+}
 TRAIN_STEPS = 5
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+# the library Pallas kernel whose backward the dkv and dq kernels replace
+LIBRARY_FLASH = "jax/experimental/pallas/ops/tpu/flash_attention.py"
 # bf16 kernel against the plain version computed in f32 from the same bf16
 # inputs: the kernel rounds P and O to bf16 (2^-8 relative each), so
 # |err| <= ATOL + RTOL * |ref| with ATOL = 4 * 2^-8 for |v| up to ~4
@@ -116,6 +137,28 @@ SMALL_LOSS_RTOL, SMALL_GRAD_COSINE = 1e-2, 0.99
 # flagship-train, fused against chunked CE on one batch: the kernels round
 # dl to bf16 where the chunked CE keeps f32 logits end to end
 FUSED_LOSS_ATOL, EMBED_GRAD_COSINE = 1e-3, 0.999
+# K5's backward against its plain version computed in f32 from the same
+# bf16 q, k, v, do and the kernel's own o and lse: the kernels round p and
+# ds to bf16 before the products that consume them (2^-9 relative per
+# term, summed over terms whose absolute sum is a few times the largest
+# output) and round dq, dk, dv to bf16 (2^-9): the CE's gradient form
+# |err| <= 2^-8 |ref| + 2^-7 max|ref| (GRAD_RTOL, GRAD_ATOL_SCALE).  lse:
+# f32 summation order of the scores (<= 64 * 2^-24 * sum|q_d k_d| / 8,
+# ~2e-5 for unit-scale inputs) and __expf's few-2^-22 relative error,
+# against values near log(S): 1e-3 absolute.
+LSE_ATOL = 1e-3
+# flagship-8k-train, flash against plain attention on one batch of 1 row,
+# both bf16: the two round attention's output and gradients differently
+# in the last bf16 bit, which the residual stream carries through 4
+# layers.  The loss is a mean over 8192 tokens of CE differences of the
+# size of the logits' (mean 3e-3 in phase 5): 1e-3 relative.  The
+# attention projections wq, wk, wv and wo, whose gradients flow through
+# the flash kernels, at cosine >= 0.999.  Every other leaf at >= 0.9: a
+# near-tie in the gate routes a token elsewhere, and with 65 % of the
+# choices dropped at capacity one moved token reorders its expert's
+# queue, so the expert leaves' cosine measures routing agreement, not
+# attention (0.957 at the last layer's experts on an H100).
+FLASH_LOSS_RTOL, ATTN_GRAD_COSINE, FLASH_GRAD_COSINE = 1e-3, 0.999, 0.9
 
 
 def phase(name: str) -> None:
@@ -172,6 +215,32 @@ def check_flash(shape, gen) -> float:
     assert torch.isfinite(out).all(), "kernel output is not finite"
     assert bad == 0, f"flash_attn_fwd disagrees with its plain version at {shape}"
     return max_err
+
+
+def check_flash_bwd(shape, gen) -> dict:
+    """K5 bwd (dkv, dq) and the forward's lse on one shape against their
+    plain versions computed in f32 from the same bf16 inputs and the
+    kernel's own o and lse; max |err| each."""
+    q, k, v, do = (randn_bf16(shape, gen) for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    _, want_lse = fa.attention_fwd_reference(q.float(), k.float(), v.float())
+    err_lse = float((lse - want_lse).abs().max())
+    del want_lse
+    want = fa.attention_bwd_reference(q.float(), k.float(), v.float(),
+                                      o.float(), lse, do.float())
+    errs = {name: _grad_err(f"flash_attn_bwd {name}", got, ref)
+            for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want)}
+    for name, got in zip(("dq", "dk", "dv"), (dq, dk, dv)):
+        assert float(got.float().abs().max()) > 0, f"{name} is all zeros"
+    print(f"flash_attn_bwd {list(shape)}: max|err| lse {err_lse:.3e}, "
+          + ", ".join(f"{n} {e:.3e} (max|{n}| "
+                      f"{float(w.abs().max()):.3e})"
+                      for (n, e), w in zip(errs.items(), want)))
+    assert err_lse <= LSE_ATOL, f"flash_attn_fwd lse disagrees at {shape}"
+    return {"flash_attn_bwd_dkv": max(errs["dk"], errs["dv"]),
+            "flash_attn_bwd_dq": errs["dq"], "lse": err_lse}
 
 
 def ce_inputs(n, d, v, gen):
@@ -290,6 +359,17 @@ def small_train_reference(counters) -> None:
     assert min(cosines) >= SMALL_GRAD_COSINE, "gradients differ card vs cpu"
 
 
+def leaf_paths(tree, prefix="") -> list[str]:
+    """Names of the leaves of a param tree, in tree_leaves' order."""
+    if isinstance(tree, dict):
+        return [p for key, val in tree.items()
+                for p in leaf_paths(val, f"{prefix}.{key}" if prefix else key)]
+    if isinstance(tree, (tuple, list)):
+        return [p for i, val in enumerate(tree)
+                for p in leaf_paths(val, f"{prefix}[{i}]")]
+    return [prefix]
+
+
 def tree_to(tree, device):
     return tree_map(lambda t: t.to(device), tree)
 
@@ -334,6 +414,8 @@ def serve_flagship(counters) -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"kernel launches in one generate: {launches}")
     assert launches["flash_attn_fwd"] == cfg.n_layers, launches
+    # serving takes no gradient: no backward kernel, no lse
+    assert launches["flash_attn_bwd_dkv"] == launches["flash_attn_bwd_dq"] == 0
     assert out.shape == (batch, prompt_len + new) and out.dtype == torch.int32
     assert torch.equal(out[:, :prompt_len], prompts)
     assert int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size
@@ -375,29 +457,34 @@ def train_batch(cfg, batch: int, seed: int):
     return seq[:, :-1].contiguous(), seq[:, 1:].contiguous()
 
 
-def build_flagship_train():
-    """(model, params, optimizer, opt_state, step, ids, tgt) of
-    ``flagship-train`` with random weights from SEED."""
-    cfg = DMoETransformerConfig(**FLAGSHIP_TRAIN)
+def build_train(name: str):
+    """(model, params, optimizer, opt_state, step, ids, tgt) of the
+    training configuration ``name`` (a key of TRAINING) with random
+    weights from SEED."""
+    config, batch = TRAINING[name]
+    cfg = DMoETransformerConfig(**config)
     model = DMoETransformerLM(cfg, device="cuda")
-    assert model.cfg.attn_impl == "xla", model.cfg.attn_impl
+    want = "flash" if cfg.seq_len >= 8192 else "xla"
+    assert model.cfg.attn_impl == want, model.cfg.attn_impl
     params = model.init_params(torch.Generator(device="cuda").manual_seed(SEED))
     optimizer = fused_adafactor(1e-3)
     opt_state = model.init_opt_state(optimizer, params)
     step = model.make_train_step(optimizer)
-    ids, tgt = train_batch(cfg, TRAIN_BATCH, SEED + 2)
+    ids, tgt = train_batch(cfg, batch, SEED + 2)
     return model, params, optimizer, opt_state, step, ids, tgt
 
 
-def train_flagship(counters) -> dict:
-    """Phase 6; returns the kernel counts of the TRAIN_STEPS timed steps."""
-    model, params, _, opt_state, step, ids, tgt = build_flagship_train()
+def train(name: str, counters) -> dict:
+    """Phases 6 and 7; returns the kernel counts of the TRAIN_STEPS timed
+    steps and the step's numbers."""
+    model, params, _, opt_state, step, ids, tgt = build_train(name)
     cfg = model.cfg
     n_params = sum(t.numel() for t in tree_leaves(params))
-    tokens = TRAIN_BATCH * cfg.seq_len
+    tokens = ids.numel()
     (params, opt_state, loss0, metrics0), warm_s = timed(
         lambda: step(params, opt_state, ids, tgt))
     print(f"params {n_params / 1e9:.3f} B ({tree_leaves(params)[0].dtype}); "
+          f"batch {ids.shape[0]} x {cfg.seq_len}; "
           f"warm-up step {warm_s * 1e3:.1f} ms, loss {float(loss0):.5f}, "
           f"metrics {({k: round(float(v), 5) for k, v in metrics0.items()})}")
     torch.cuda.reset_peak_memory_stats()
@@ -410,20 +497,34 @@ def train_flagship(counters) -> dict:
         losses.append(float(loss))
     launches = read_counts(counters)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"kernel launches in {TRAIN_STEPS} train steps: {launches}")
+    per_step = {k: n / TRAIN_STEPS for k, n in launches.items()}
+    print(f"kernel launches in {TRAIN_STEPS} train steps: {launches}; "
+          f"per step {per_step}")
     print(f"losses {[round(float(loss0), 5)] + [round(x, 5) for x in losses]}; "
           f"last metrics {({k: round(float(v), 5) for k, v in metrics.items()})}")
     med = statistics.median(step_ms)
-    print(f"flagship-train step: median {med:.1f} ms (all {[round(t, 1) for t in step_ms]}), "
+    print(f"{name} step: median {med:.1f} ms (all {[round(t, 1) for t in step_ms]}), "
           f"{tokens / med * 1e3:.0f} tokens/s, peak {peak_gb:.2f} GB")
     assert all(math.isfinite(x) for x in losses), losses
     assert losses[-1] < float(loss0), "the loss did not fall on a fixed batch"
-    for name in ("fused_ce_fwd", "fused_ce_dx", "fused_ce_dhead"):
-        assert launches[name] == TRAIN_STEPS, launches
-    assert launches["flash_attn_fwd"] == 0, launches
+    flash = cfg.attn_impl == "flash"
+    want = {"fused_ce_fwd": 1, "fused_ce_dx": 1, "fused_ce_dhead": 1,
+            "flash_attn_fwd": 2 * cfg.n_layers if flash else 0,
+            "flash_attn_bwd_dkv": cfg.n_layers if flash else 0,
+            "flash_attn_bwd_dq": cfg.n_layers if flash else 0}
+    assert per_step == want, (per_step, want)
+    if flash:
+        check_flash_training(model, params)
+    else:
+        check_fused_training(model, params, ids, tgt)
+    return {"launches": launches, "step_ms": med,
+            "tokens_per_s": tokens / med * 1e3, "peak_gb": peak_gb}
 
-    # the fused CE against the chunked CE on the same batch and weights
-    chunked = DMoETransformerLM(dataclasses.replace(cfg, ce_impl="chunked"),
+
+def check_fused_training(model, params, ids, tgt) -> None:
+    """The fused CE against the chunked CE on the same batch and weights."""
+    chunked = DMoETransformerLM(dataclasses.replace(model.cfg,
+                                                    ce_impl="chunked"),
                                 device="cuda")
     (l_fused, _), grads = model.value_and_grad(params, ids, tgt)
     e_fused = grads["embed"].float()
@@ -437,12 +538,48 @@ def train_flagship(counters) -> dict:
           f"{float(l_chunk):.6f} (|diff| {dloss:.2e}); embedding-gradient "
           f"cosine {cos:.6f}")
     assert dloss <= FUSED_LOSS_ATOL and cos >= EMBED_GRAD_COSINE
-    return {"launches": launches, "step_ms": med, "tokens_per_s": tokens / med * 1e3,
-            "peak_gb": peak_gb}
 
 
-def time_fused_ce(shape, gen, launches, errs) -> list[dict]:
-    """Phase 7 for K1-K3: kernel, plain version, cuBLAS yardstick, bound."""
+def check_flash_training(model, params) -> None:
+    """Flash against plain attention on the same weights and one batch of
+    1 row, where the plain path's [1, H, S, S] scores fit: the loss agrees,
+    the attention projections' gradients pass ATTN_GRAD_COSINE and every
+    leaf's FLASH_GRAD_COSINE, and no leaf's gradient is all zeros (wq, wk
+    and wv's would be if the flash kernels' gradient were dropped)."""
+    ids, tgt = train_batch(model.cfg, 1, SEED + 3)
+    plain = DMoETransformerLM(dataclasses.replace(model.cfg, attn_impl="xla"),
+                              device="cuda")
+    (l_flash, _), g_flash = model.value_and_grad(params, ids, tgt)
+    (l_plain, _), g_plain = plain.value_and_grad(params, ids, tgt)
+    named = {}
+    for i, (a, b) in enumerate(zip(g_flash["layers"], g_plain["layers"])):
+        for name in ("wq", "wk", "wv", "wo"):
+            named[f"layers[{i}].{name}"] = cosine(a[name], b[name])
+    leaves_f, leaves_p = tree_leaves(g_flash), tree_leaves(g_plain)
+    cosines = [cosine(a, b) for a, b in zip(leaves_f, leaves_p)]
+    names = leaf_paths(g_flash)
+    zero = [names[i] for i, g in enumerate(leaves_f) if not bool(g.any())]
+    rel = abs(float(l_flash) - float(l_plain)) / abs(float(l_plain))
+    print(f"flash vs plain attention, batch 1 x {model.cfg.seq_len}: loss "
+          f"{float(l_flash):.6f} vs {float(l_plain):.6f} (rel {rel:.2e}); "
+          f"min gradient cosine {min(cosines):.6f} over {len(cosines)} "
+          f"leaves; all-zero leaves {zero}")
+    print("attention-projection gradient cosines: "
+          + ", ".join(f"{k} {v:.6f}" for k, v in named.items()))
+    worst = sorted(zip(cosines, names, leaves_f, leaves_p))[:6]
+    print("lowest gradient cosines: " + ", ".join(
+        f"{n} {c:.6f} (|g| {float(a.float().norm()):.3e} vs "
+        f"{float(b.float().norm()):.3e})" for c, n, a, b in worst))
+    assert not zero, f"gradient leaves {zero} are all zeros"
+    assert rel <= FLASH_LOSS_RTOL, "flash and plain attention losses differ"
+    assert min(named.values()) >= ATTN_GRAD_COSINE, \
+        "flash and plain attention-projection gradients differ"
+    assert min(cosines) >= FLASH_GRAD_COSINE, "flash and plain gradients differ"
+
+
+def time_fused_ce(shape, gen) -> dict:
+    """Phase 8 for K1-K3 at one shape: kernel, plain version, cuBLAS
+    yardstick, bound; a dict of timings by kernel name."""
     n, d, v = shape
     x, head, tgt, dce = ce_inputs(n, d, v, gen)
     _, lse = fce.ce_forward(x, head, tgt)
@@ -450,44 +587,96 @@ def time_fused_ce(shape, gen, launches, errs) -> list[dict]:
     rows = 4 * n  # targets read, ce / lse written or lse / dce read (4 bytes)
     fwd_bytes = 2 * n * d + 2 * d * v + rows + 2 * 4 * n
     cases = [
-        ("fused_ce_fwd", "learning_at_home_tpu/ops/fused_ce.py:58",
-         lambda: fce.ce_forward(x, head, tgt),
+        ("fused_ce_fwd", lambda: fce.ce_forward(x, head, tgt),
          lambda: fce.ce_fwd_reference(x, head, tgt),
          2 * n * d * v, fwd_bytes),
-        ("fused_ce_dx", "learning_at_home_tpu/ops/fused_ce.py:96",
-         lambda: fce.ce_dx(x, head, tgt, lse, dce),
+        ("fused_ce_dx", lambda: fce.ce_dx(x, head, tgt, lse, dce),
          lambda: fce.ce_dx_reference(x, head, tgt, lse, dce),
          4 * n * d * v, 2 * n * d + 2 * d * v + 3 * rows + 2 * n * d),
-        ("fused_ce_dhead", "learning_at_home_tpu/ops/fused_ce.py:124",
-         lambda: fce.ce_dhead(x, head, tgt, lse, dce),
+        ("fused_ce_dhead", lambda: fce.ce_dhead(x, head, tgt, lse, dce),
          lambda: fce.ce_dhead_reference(x, head, tgt, lse, dce),
          4 * n * d * v, 2 * n * d + 2 * d * v + 3 * rows + 2 * d * v),
     ]
-    out = []
-    for name, replaces, kernel, plain, flops, nbytes in cases:
+    out = {}
+    for name, kernel, plain, flops, nbytes in cases:
         ms = median_ms(kernel)
         plain_ms = median_ms(plain, reps=5, warmup=1)
         bound_ms, bound_by = bound(flops, nbytes)
         print(f"{name} {list(shape)}: {ms:.4f} ms ({flops / ms / 1e9:.1f} "
               f"TFLOP/s), plain {plain_ms:.4f} ms, cuBLAS x@head "
               f"{yard_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-        out.append({
-            "name": name,
-            "route": "cuda",
-            "source": "learning_at_home_tpu_torch/csrc/fused_ce.cu",
-            "replaces": replaces,
-            "launches": launches[name],
-            "launches_per_step": launches[name] / TRAIN_STEPS,
-            "shape": [n, d, v],
-            "max_abs_err": errs[name],
-            "ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
-            "bound_by": bound_by,
-            "library_ms": None,
-            "yardstick": "torch.matmul(x, head) bf16 (cuBLAS), K1's product",
-            "yardstick_ms": yard_ms,
-        })
+        out[name] = {"shape": [n, d, v], "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "yardstick_ms": yard_ms}
+    return out
+
+
+def time_attention(shape, gen, train: bool) -> dict:
+    """Phase 8 for K5 at one [B,S,H,hd] shape: the forward (with the lse
+    the training path writes when ``train``) and, when ``train``, the dkv
+    and dq kernels; each against its bound, its plain version and the
+    PyTorch call (SDPA) or yardstick (SDPA's whole backward)."""
+    b, s, h, hd = shape
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q, k, v, do = (randn_bf16(shape, gen) for _ in range(4))
+    pairs = b * h * s * (s + 1) / 2  # causal (query, key) pairs
+    product = 2 * pairs * hd  # operations of one causal product
+    tensor = b * s * h * hd * 2  # bytes of one [B,S,H,hd] bf16 tensor
+    stats = b * h * s * 4  # bytes of lse or di
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    out = {"flash_attn_fwd": {
+        "shape": list(shape),
+        "ms": median_ms(lambda: fa.flash_attention_fwd(q, k, v, with_lse=train)),
+        "plain_ms": median_ms(lambda: fa.attention_fwd_reference(
+            q, k, v, with_lse=train), reps=5, warmup=1),
+        "library_ms": median_ms(lambda: sdpa(qt, kt, vt, is_causal=True)),
+        **dict(zip(("bound_ms", "bound_by"), bound(
+            2 * product, 4 * tensor + (stats if train else 0)))),
+    }}
+    if train:
+        o, lse = fa.flash_attention_fwd(q, k, v)
+        di = fa._row_dot(o, do)
+        leaves = [t.detach().requires_grad_(True) for t in (qt, kt, vt)]
+        out_t = sdpa(*leaves, is_causal=True)
+        do_t = do.transpose(1, 2)
+        yard_ms = median_ms(lambda: torch.autograd.grad(
+            out_t, leaves, do_t, retain_graph=True))
+        plain_ms = median_ms(lambda: fa.attention_bwd_reference(
+            q, k, v, o, lse, do), reps=3, warmup=1)
+        pair_ms, _ = bound(5 * product, 5 * tensor + 2 * stats + 3 * tensor)
+        for name, fn, n_products, n_out in (
+                ("flash_attn_bwd_dkv",
+                 lambda: fa.flash_attention_dkv(q, k, v, do, lse, di), 4, 2),
+                ("flash_attn_bwd_dq",
+                 lambda: fa.flash_attention_dq(q, k, v, do, lse, di), 3, 1)):
+            bound_ms, bound_by = bound(n_products * product,
+                                       (4 + n_out) * tensor + 2 * stats)
+            out[name] = {
+                "shape": list(shape), "ms": median_ms(fn),
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None,
+                "yardstick": "torch.nn.functional.scaled_dot_product_attention"
+                             "(is_causal=True) backward: dq, dk and dv "
+                             "together",
+                "yardstick_ms": yard_ms,
+                "plain_computes": "dq, dk and dv together",
+                "pair_bound_ms": pair_ms,
+            }
+        del leaves, out_t
+    for name, row in out.items():
+        n_products = {"flash_attn_fwd": 2, "flash_attn_bwd_dkv": 4,
+                      "flash_attn_bwd_dq": 3}[name]
+        lib = row["library_ms"] if row["library_ms"] is not None \
+            else row["yardstick_ms"]
+        print(f"{name} {list(shape)}: {row['ms']:.4f} ms "
+              f"({n_products * product / row['ms'] / 1e9:.1f} TFLOP/s), plain "
+              f"{row['plain_ms']:.4f} ms, sdpa {lib:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+    if train:
+        both = out["flash_attn_bwd_dkv"]["ms"] + out["flash_attn_bwd_dq"]["ms"]
+        print(f"K5 backward (dkv + dq) {list(shape)}: {both:.4f} ms, "
+              f"5-product bound {out['flash_attn_bwd_dq']['pair_bound_ms']:.4f} "
+              f"ms, sdpa backward {out['flash_attn_bwd_dq']['yardstick_ms']:.4f} ms")
     return out
 
 
@@ -498,7 +687,10 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # each wrapper's launch counter (the forward's lives on flash_attention)
     counters = {"flash_attn_fwd": fa.flash_attention,
+                "flash_attn_bwd_dkv": fa.flash_attention_dkv,
+                "flash_attn_bwd_dq": fa.flash_attention_dq,
                 "fused_ce_fwd": fce.ce_forward, "fused_ce_dx": fce.ce_dx,
                 "fused_ce_dhead": fce.ce_dhead}
     card = card_line()
@@ -520,6 +712,9 @@ def main() -> int:
     flash_err = check_flash(main_shape, gen)
     for shape in [(1, 1000, 8, 64), (3, 70, 2, 64), (1, 1, 1, 64)]:
         check_flash(shape, gen)
+    bwd_errs = check_flash_bwd((1, 8192, 8, 64), gen)
+    for shape in [(2, 4096, 8, 64), (1, 1000, 8, 64)]:
+        check_flash_bwd(shape, gen)
     # [n, d, V] of flagship-train's CE: 176 x 256 tokens
     ce_shape = (TRAIN_BATCH * FLAGSHIP_TRAIN["seq_len"],
                 FLAGSHIP_TRAIN["d_model"], FLAGSHIP_TRAIN["vocab_size"])
@@ -537,40 +732,64 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase("training flagship-train")
-    train = train_flagship(counters)
+    trained = {"flagship-train": train("flagship-train", counters)}
+    torch.cuda.empty_cache()
+
+    phase("training flagship-8k-train")
+    trained["flagship-8k-train"] = train("flagship-8k-train", counters)
     torch.cuda.empty_cache()
 
     phase("timings")
-    b, s, h, hd = main_shape
-    q, k, v = (randn_bf16(main_shape, gen) for _ in range(3))
-    ms = median_ms(lambda: fa.flash_attention(q, k, v))
-    plain_ms = median_ms(lambda: fa.attention_reference(q, k, v))
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    library_ms = median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True))
-    flops = 4 * b * h * hd * s * (s + 1) / 2  # causal pairs only
-    nbytes = 4 * b * s * h * hd * 2  # q, k, v read once, o written once
-    bound_ms, bound_by = bound(flops, nbytes)
-    del q, k, v, qt, kt, vt
-    kernels = [{
-        "name": "flash_attn_fwd",
-        "route": "cuda",
-        "source": "learning_at_home_tpu_torch/csrc/flash_attn_fwd.cu",
-        "replaces": "learning_at_home_tpu/models/trunk.py:73",
-        "launches": serve_launches["flash_attn_fwd"],
-        "launches_per_generate": serve_launches["flash_attn_fwd"],
-        "shape": list(main_shape),
-        "max_abs_err": flash_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": library_ms,
-    }]
-    print(f"flash_attn_fwd {list(main_shape)}: {ms:.4f} ms "
-          f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
-          f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms")
-    kernels += time_fused_ce(ce_shape, gen, train["launches"], ce_errs)
+    train_shape = (TRAIN_8K_BATCH, FLAGSHIP_8K_TRAIN["seq_len"],
+                   FLAGSHIP_8K_TRAIN["n_heads"],
+                   FLAGSHIP_8K_TRAIN["d_model"] // FLAGSHIP_8K_TRAIN["n_heads"])
+    serve_times = time_attention(main_shape, gen, train=False)
+    torch.cuda.empty_cache()
+    train_times = time_attention(train_shape, gen, train=True)
+    torch.cuda.empty_cache()
+    ce_times = time_fused_ce(ce_shape, gen)
+    ce_8k_shape = (TRAIN_8K_BATCH * FLAGSHIP_8K_TRAIN["seq_len"], *ce_shape[1:])
+    ce_8k_times = time_fused_ce(ce_8k_shape, gen)
+
+    def by_path(name):
+        return {"flagship-8k (one generate)": serve_launches[name],
+                **{f"{cfg} ({TRAIN_STEPS} steps)": run["launches"][name]
+                   for cfg, run in trained.items()}}
+
+    errs = {"flash_attn_fwd": flash_err, **bwd_errs, **ce_errs}
+    kernels = []
+    for name, source, replaces, main_times, train_times_of in [
+        ("flash_attn_fwd", "flash_attn_fwd.cu",
+         "learning_at_home_tpu/models/trunk.py:73",
+         serve_times["flash_attn_fwd"], train_times["flash_attn_fwd"]),
+        ("flash_attn_bwd_dkv", "flash_attn_bwd.cu", LIBRARY_FLASH + ":941",
+         train_times["flash_attn_bwd_dkv"], None),
+        ("flash_attn_bwd_dq", "flash_attn_bwd.cu", LIBRARY_FLASH + ":1287",
+         train_times["flash_attn_bwd_dq"], None),
+        *((ce, "fused_ce.cu", f"learning_at_home_tpu/ops/fused_ce.py:{line}",
+           ce_times[ce], ce_8k_times[ce])
+          for ce, line in (("fused_ce_fwd", 58), ("fused_ce_dx", 96),
+                           ("fused_ce_dhead", 124))),
+    ]:
+        paths = by_path(name)
+        row = {
+            "name": name,
+            "route": "cuda",
+            "source": f"learning_at_home_tpu_torch/csrc/{source}",
+            "replaces": replaces,
+            "launches": sum(paths.values()),
+            "launches_by_path": paths,
+            "max_abs_err": errs[name],
+            **main_times,
+        }
+        row.setdefault("library_ms", None)
+        if train_times_of is not None:
+            row["at_flagship_8k_train"] = train_times_of
+        if name.startswith("fused_ce"):
+            row["yardstick"] = "torch.matmul(x, head) bf16 (cuBLAS), K1's product"
+        kernels.append(row)
+    print(f"lse of flash_attn_fwd: max|err| {bwd_errs['lse']:.3e} at "
+          f"[1, 8192, 8, 64] (limit {LSE_ATOL})")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

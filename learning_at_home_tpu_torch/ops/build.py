@@ -29,6 +29,7 @@ DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 # library name -> its sources under csrc/
 LIBRARIES = {
     "flash_attn_fwd": ("flash_attn_fwd.cu",),
+    "flash_attn_bwd": ("flash_attn_bwd.cu",),
     "fused_ce": ("fused_ce.cu",),
 }
 

@@ -1,17 +1,23 @@
 #!/usr/bin/env python3
 """Where the port's training time goes on one CUDA card.
 
-Builds ``flagship-train`` (as in ``chip_smoke.py``: the 256-expert
-DMoE-Transformer at seq_len 256 with bf16 params, remat "full", the
-per-layer tuple layout, the fused CE and fused Adafactor 1e-3, batch 176,
-random weights from a seed), takes two warm-up steps on one fixed batch,
-then traces ``--steps`` more with ``torch.profiler``.  It prints, per
-step, the wall time, the summed device time of the kernels, the device's
-busy share (summed kernel time over wall time; the port runs on one
-stream, so kernels do not overlap), the device time by kind of kernel and
-the kernels that take the most device time.
+Builds a training configuration of ``chip_smoke.py`` by name (random
+weights from a seed, fused CE, fused Adafactor 1e-3):
 
-    python3 profile_training.py [--steps 2] [--top 15] [--trace-dir traces]
+- ``flagship-train``: the 256-expert DMoE-Transformer at seq_len 256 with
+  bf16 params, remat "full" and the per-layer tuple layout, batch 176;
+- ``flagship-8k-train``: the same recipe at seq_len 8192, batch 4, where
+  the flash-attention kernels run forward and backward.
+
+It takes two warm-up steps on one fixed batch, then traces ``--steps``
+more with ``torch.profiler``.  It prints, per step, the wall time, the
+summed device time of the kernels, the device's busy share (summed kernel
+time over wall time; the port runs on one stream, so kernels do not
+overlap), the device time by kind of kernel and the kernels that take the
+most device time.
+
+    python3 profile_training.py [--config flagship-8k-train] [--steps 2]
+                                [--top 15] [--trace-dir traces]
 """
 
 from __future__ import annotations
@@ -24,12 +30,14 @@ from pathlib import Path
 
 import torch
 
-from chip_smoke import TRAIN_BATCH, build_flagship_train, card_line
+from chip_smoke import TRAINING, build_train, card_line
 from profile_serving import report, traced
 
 # kernel name patterns, first match wins
 KINDS = [
     ("fused CE (K1-K3)", r"fused_ce_kernel"),
+    ("flash attention forward (K5 fwd)", r"flash_attn_fwd"),
+    ("flash attention backward (K5 dkv, dq)", r"flash_attn_bwd"),
     ("scan (routing cumsum)", r"scan"),
     ("matmul (cuBLAS)", r"gemm|nvjet|xmma|cutlass|sm90_"),
     ("reduce", r"reduce|Reduce|norm"),
@@ -48,6 +56,8 @@ def kind_of(name: str) -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", choices=sorted(TRAINING),
+                    default="flagship-train")
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--trace-dir", type=Path, default=None,
@@ -59,7 +69,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    model, params, _, opt_state, step, ids, tgt = build_flagship_train()
+    model, params, _, opt_state, step, ids, tgt = build_train(args.config)
     state = {"params": params, "opt_state": opt_state}
 
     def run(n):
@@ -71,9 +81,9 @@ def main() -> int:
     path = None
     if args.trace_dir is not None:
         args.trace_dir.mkdir(parents=True, exist_ok=True)
-        path = args.trace_dir / "training_step.trace.json"
+        path = args.trace_dir / f"{args.config}_step.trace.json"
     wall_ms, rows = traced(lambda: run(args.steps), path)
-    print(f"{card_line()}; flagship-train, batch {TRAIN_BATCH} x "
+    print(f"{card_line()}; {args.config}, batch {ids.shape[0]} x "
           f"{model.cfg.seq_len} tokens")
     out = report(f"train step (mean of {args.steps})", wall_ms, rows,
                  args.top, per=args.steps)
@@ -83,7 +93,8 @@ def main() -> int:
     print("-- device time per step by kind of kernel")
     for kind, ms in sorted(kinds.items(), key=lambda kv: -kv[1]):
         print(f"   {ms:9.3f} ms {100 * ms / out['kernel_ms']:5.1f} %  {kind}")
-    print(json.dumps({"train_step": {"wall_ms": out["wall_ms"],
+    print(json.dumps({"train_step": {"config": args.config,
+                                     "wall_ms": out["wall_ms"],
                                      "kernel_ms": out["kernel_ms"],
                                      "by_kind_ms": kinds}}))
     return 0

@@ -1,14 +1,22 @@
 """The port's attention (ops/flash_attention.py, models/trunk.py) against
 the JAX package's trunk on the same numpy inputs.
 
-``jax.nn.dot_product_attention`` (``attention_core(impl="xla")``) is the
-oracle: the Pallas flash kernel has no interpret mode.  The Hopper
-kernel itself is tested on the card by test_torch_flash_kernel_cuda.py."""
+Two oracles: ``jax.nn.dot_product_attention`` (``attention_core(
+impl="xla")``) at any S, and the library Pallas flash kernel itself
+(``attention_core(impl="flash")``), which runs on the CPU under
+``jax.experimental.pallas.tpu.force_tpu_interpret_mode()`` for S a
+multiple of its 128-row blocks (and without ``jax.checkpoint`` around it,
+which interpret mode's ordered effects refuse).  The gradients are held
+against the library kernel's backward in test_torch_flash_attention_bwd.py.
+The Hopper kernels themselves are tested on the card by
+test_torch_flash_kernel_cuda.py and test_torch_flash_bwd_cuda.py."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
 
 from learning_at_home_tpu.models import trunk as jtrunk
 from learning_at_home_tpu_torch.models import trunk as ttrunk
@@ -55,6 +63,28 @@ def test_attention_core_matches_jax(shape, dtype, tol):
         )
         assert got.dtype == tdt and got.shape == shape
         np.testing.assert_allclose(got.float().numpy(), want, atol=tol, rtol=tol)
+
+
+# the library kernel in interpret mode: f32 agrees to summation order; in
+# bf16 both round the probabilities and the output to bf16 (2^-8
+# relative), the library before normalising, the port after
+@pytest.mark.parametrize("dtype,tol", [("f32", 1e-5), ("bf16", 2e-2)])
+def test_attention_core_matches_the_jax_flash_kernel(dtype, tol):
+    rng = np.random.default_rng(6)
+    q, k, v = _qkv(rng, (2, 256, 4, 64), scale=2.0)
+    if dtype == "bf16":
+        q, k, v = map(_bf16_np, (q, k, v))
+        jdt, tdt = jnp.bfloat16, torch.bfloat16
+    else:
+        jdt, tdt = jnp.float32, torch.float32
+    fn = jax.jit(lambda q, k, v: jtrunk.attention_core(q, k, v, impl="flash"))
+    with pltpu.force_tpu_interpret_mode():
+        want = fn(*(jnp.asarray(a, jdt) for a in (q, k, v)))
+    want = np.asarray(want.astype(jnp.float32))
+    got = ttrunk.attention_core(
+        *(torch.from_numpy(a).to(tdt) for a in (q, k, v)), impl="flash")
+    assert got.dtype == tdt
+    np.testing.assert_allclose(got.float().numpy(), want, atol=tol, rtol=tol)
 
 
 def test_flash_wrapper_on_cpu_is_the_plain_version_and_launches_nothing():
