@@ -42,7 +42,10 @@ Phases, each of which asserts (none catches its own failure):
                recompute), the dkv and dq kernels 4 times each and K1-K3
                once each; on one batch of 1 row the loss and every
                gradient leaf must agree with plain attention on the same
-               weights, and no leaf's gradient may be all zeros.
+               weights, with each path routing by itself and with the
+               plain path replaying the flash path's routing (the
+               routing choices that differ are counted per layer), and
+               no leaf's gradient may be all zeros.
 8. timings  -- CUDA-event medians of each kernel, its plain version and
                the PyTorch call computing the same function (SDPA for the
                attention forward; for K1-K3 and the attention backward,
@@ -57,6 +60,7 @@ without the repository's package beside it.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -74,6 +78,7 @@ from learning_at_home_tpu_torch.models.transformer import (
 from learning_at_home_tpu_torch.ops import build
 from learning_at_home_tpu_torch.ops import flash_attention as fa
 from learning_at_home_tpu_torch.ops import fused_ce as fce
+from learning_at_home_tpu_torch.ops import moe_dispatch
 from learning_at_home_tpu_torch.ops.fused_adafactor import fused_adafactor
 from learning_at_home_tpu_torch.tree import tree_leaves, tree_map
 
@@ -107,11 +112,37 @@ TRAINING = {
     "flagship-8k-train": (FLAGSHIP_8K_TRAIN, TRAIN_8K_BATCH),
 }
 TRAIN_STEPS = 5
+# the main paths' kernel shapes: [B,S,H,hd] of one flagship-8k prefill
+# layer and of one flagship-8k-train layer; [n, d, V] of each training
+# configuration's CE
+SERVE_ATTN = (2, 4096, 8, 64)
+TRAIN_ATTN = (TRAIN_8K_BATCH, FLAGSHIP_8K_TRAIN["seq_len"],
+              FLAGSHIP_8K_TRAIN["n_heads"],
+              FLAGSHIP_8K_TRAIN["d_model"] // FLAGSHIP_8K_TRAIN["n_heads"])
+CE_TRAIN, CE_8K_TRAIN = ((batch * cfg["seq_len"], cfg["d_model"],
+                          cfg["vocab_size"]) for cfg, batch in TRAINING.values())
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 # the library Pallas kernel whose backward the dkv and dq kernels replace
 LIBRARY_FLASH = "jax/experimental/pallas/ops/tpu/flash_attention.py"
+# the kernels line: each kernel's source in csrc/, the TPU kernel it
+# replaces, and the shape whose numbers head its row (the path it stands
+# for); the numbers of every other shape it was checked or timed at follow
+KERNELS = {
+    "flash_attn_fwd": ("flash_attn_fwd.cu",
+                       "learning_at_home_tpu/models/trunk.py:73", SERVE_ATTN),
+    "flash_attn_bwd_dkv": ("flash_attn_bwd.cu", LIBRARY_FLASH + ":941",
+                           TRAIN_ATTN),
+    "flash_attn_bwd_dq": ("flash_attn_bwd.cu", LIBRARY_FLASH + ":1287",
+                          TRAIN_ATTN),
+    **{name: ("fused_ce.cu", f"learning_at_home_tpu/ops/fused_ce.py:{line}",
+              CE_TRAIN)
+       for name, line in (("fused_ce_fwd", 58), ("fused_ce_dx", 96),
+                          ("fused_ce_dhead", 124))},
+}
+CONTRACT_KEYS = {"max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms"}
 # bf16 kernel against the plain version computed in f32 from the same bf16
 # inputs: the kernel rounds P and O to bf16 (2^-8 relative each), so
 # |err| <= ATOL + RTOL * |ref| with ATOL = 4 * 2^-8 for |v| up to ~4
@@ -153,12 +184,17 @@ LSE_ATOL = 1e-3
 # layers.  The loss is a mean over 8192 tokens of CE differences of the
 # size of the logits' (mean 3e-3 in phase 5): 1e-3 relative.  The
 # attention projections wq, wk, wv and wo, whose gradients flow through
-# the flash kernels, at cosine >= 0.999.  Every other leaf at >= 0.9: a
-# near-tie in the gate routes a token elsewhere, and with 65 % of the
-# choices dropped at capacity one moved token reorders its expert's
-# queue, so the expert leaves' cosine measures routing agreement, not
-# attention (0.957 at the last layer's experts on an H100).
+# the flash kernels: cosine >= 0.999 and norms within 1e-2 relative (a
+# cosine alone cannot see a gradient off by a constant factor).  The same
+# last-bit differences tip near-ties in the gate, so some tokens route to
+# other experts on the two paths (counted per layer); the expert and gate
+# leaves then differ by those tokens' terms, and with each path routing
+# by itself every leaf is held at cosine >= 0.9 only.  With the plain path
+# replaying the flash path's routing, every leaf must meet the attention
+# projections' limits.
 FLASH_LOSS_RTOL, ATTN_GRAD_COSINE, FLASH_GRAD_COSINE = 1e-3, 0.999, 0.9
+ATTN_GRAD_NORM_RTOL = 1e-2
+ATTN_LEAVES = ("wq", "wk", "wv", "wo")
 
 
 def phase(name: str) -> None:
@@ -200,47 +236,75 @@ def randn_bf16(shape, gen):
     return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
 
 
-def check_flash(shape, gen) -> float:
+def record(results: dict, name: str, shape, form: str | None = None,
+           **values) -> None:
+    """Merge ``values`` into kernel ``name``'s entry at ``shape`` (and
+    ``form``, which tells the forward with lse from the one without): the
+    kernels line takes every number of an entry from that entry's runs."""
+    entry = {"shape": list(shape), **({"form": form} if form else {})}
+    results.setdefault(name, {}).setdefault(
+        (tuple(shape), form), entry).update(values)
+
+
+def _fwd_err(name, out, ref32) -> float:
+    """max |kernel - plain| of a flash forward output, within the stated
+    tolerance."""
+    err = (out.float() - ref32).abs()
+    bad = int((err > FLASH_ATOL + FLASH_RTOL * ref32.abs()).sum())
+    assert torch.isfinite(out).all(), f"{name} output is not finite"
+    assert bad == 0, f"{name}: {bad} elements outside tolerance"
+    return float(err.max())
+
+
+def check_flash(shape, gen, results) -> None:
+    """K5 fwd without lse (serving's form) against its plain version."""
     q, k, v = (randn_bf16(shape, gen) for _ in range(3))
     out = fa.flash_attention(q, k, v)
     torch.cuda.synchronize()
-    ref32 = fa.attention_reference(q.float(), k.float(), v.float())
     ref16 = fa.attention_reference(q, k, v).float()
-    err = (out.float() - ref32).abs()
-    bad = int((err > FLASH_ATOL + FLASH_RTOL * ref32.abs()).sum())
-    max_err = float(err.max())
-    print(f"flash_attn_fwd {list(shape)}: max|kernel - plain_f32| = {max_err:.3e}, "
-          f"max|kernel - plain_bf16| = {float((out.float() - ref16).abs().max()):.3e}, "
-          f"outside tolerance: {bad}")
-    assert torch.isfinite(out).all(), "kernel output is not finite"
-    assert bad == 0, f"flash_attn_fwd disagrees with its plain version at {shape}"
-    return max_err
+    err16 = float((out.float() - ref16).abs().max())
+    del ref16
+    max_err = _fwd_err(f"flash_attn_fwd {list(shape)}", out,
+                       fa.attention_reference(q.float(), k.float(), v.float()))
+    print(f"flash_attn_fwd {list(shape)}: max|kernel - plain_f32| = "
+          f"{max_err:.3e}, max|kernel - plain_bf16| = {err16:.3e}")
+    record(results, "flash_attn_fwd", shape, max_abs_err=max_err)
 
 
-def check_flash_bwd(shape, gen) -> dict:
-    """K5 bwd (dkv, dq) and the forward's lse on one shape against their
-    plain versions computed in f32 from the same bf16 inputs and the
-    kernel's own o and lse; max |err| each."""
+def check_flash_bwd(shape, gen, results) -> None:
+    """K5 fwd with lse (training's form) and K5 bwd (dkv, dq) on one shape
+    against their plain versions computed in f32 from the same bf16 inputs
+    (the backward's from the kernel's own o and lse), one batch row at a
+    time so that only one row's [H, S, S] scores are live."""
     q, k, v, do = (randn_bf16(shape, gen) for _ in range(4))
     o, lse = fa.flash_attention_fwd(q, k, v)
     dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do)
     torch.cuda.synchronize()
-    _, want_lse = fa.attention_fwd_reference(q.float(), k.float(), v.float())
-    err_lse = float((lse - want_lse).abs().max())
-    del want_lse
+    err_o = err_lse = 0.0
+    for i in range(shape[0]):
+        want_o, want_lse = fa.attention_fwd_reference(
+            *(t[i: i + 1].float() for t in (q, k, v)))
+        err_o = max(err_o, _fwd_err(f"flash_attn_fwd {list(shape)}",
+                                    o[i: i + 1], want_o))
+        err_lse = max(err_lse, float((lse[i: i + 1] - want_lse).abs().max()))
+        del want_o, want_lse
     want = fa.attention_bwd_reference(q.float(), k.float(), v.float(),
                                       o.float(), lse, do.float())
     errs = {name: _grad_err(f"flash_attn_bwd {name}", got, ref)
             for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want)}
     for name, got in zip(("dq", "dk", "dv"), (dq, dk, dv)):
         assert float(got.float().abs().max()) > 0, f"{name} is all zeros"
-    print(f"flash_attn_bwd {list(shape)}: max|err| lse {err_lse:.3e}, "
+    print(f"flash_attn_fwd+bwd {list(shape)}: max|err| o {err_o:.3e}, "
+          f"lse {err_lse:.3e}, "
           + ", ".join(f"{n} {e:.3e} (max|{n}| "
                       f"{float(w.abs().max()):.3e})"
                       for (n, e), w in zip(errs.items(), want)))
     assert err_lse <= LSE_ATOL, f"flash_attn_fwd lse disagrees at {shape}"
-    return {"flash_attn_bwd_dkv": max(errs["dk"], errs["dv"]),
-            "flash_attn_bwd_dq": errs["dq"], "lse": err_lse}
+    record(results, "flash_attn_fwd", shape, "with lse", max_abs_err=err_o,
+           lse_max_abs_err=err_lse)
+    record(results, "flash_attn_bwd_dkv", shape,
+           max_abs_err=max(errs["dk"], errs["dv"]))
+    record(results, "flash_attn_bwd_dq", shape, max_abs_err=errs["dq"])
 
 
 def ce_inputs(n, d, v, gen):
@@ -267,8 +331,8 @@ def _grad_err(name, got, want) -> float:
     return float(err.max())
 
 
-def check_fused_ce(shape, gen) -> dict:
-    """K1-K3 on one shape against their plain versions; max |err| each."""
+def check_fused_ce(shape, gen, results) -> None:
+    """K1-K3 on one shape against their plain versions."""
     n, d, v = shape
     x, head, tgt, dce = ce_inputs(n, d, v, gen)
     ce, lse = fce.ce_forward(x, head, tgt)
@@ -290,8 +354,9 @@ def check_fused_ce(shape, gen) -> dict:
           f"dx {err_dx:.3e} (max|dx| {float(dx.float().abs().max()):.3e}), "
           f"dhead {err_dhead:.3e} (max|dhead| "
           f"{float(dhead.float().abs().max()):.3e})")
-    return {"fused_ce_fwd": err_fwd, "fused_ce_dx": err_dx,
-            "fused_ce_dhead": err_dhead}
+    for name, err in (("fused_ce_fwd", err_fwd), ("fused_ce_dx", err_dx),
+                      ("fused_ce_dhead", err_dhead)):
+        record(results, name, shape, max_abs_err=err)
 
 
 def small_reference() -> None:
@@ -476,7 +541,7 @@ def build_train(name: str):
 
 def train(name: str, counters) -> dict:
     """Phases 6 and 7; returns the kernel counts of the TRAIN_STEPS timed
-    steps and the step's numbers."""
+    steps."""
     model, params, _, opt_state, step, ids, tgt = build_train(name)
     cfg = model.cfg
     n_params = sum(t.numel() for t in tree_leaves(params))
@@ -517,8 +582,7 @@ def train(name: str, counters) -> dict:
         check_flash_training(model, params)
     else:
         check_fused_training(model, params, ids, tgt)
-    return {"launches": launches, "step_ms": med,
-            "tokens_per_s": tokens / med * 1e3, "peak_gb": peak_gb}
+    return launches
 
 
 def check_fused_training(model, params, ids, tgt) -> None:
@@ -540,46 +604,109 @@ def check_fused_training(model, params, ids, tgt) -> None:
     assert dloss <= FUSED_LOSS_ATOL and cos >= EMBED_GRAD_COSINE
 
 
+@contextlib.contextmanager
+def routing_log(replay=None):
+    """Records the top-k expert choices [n, k] of every routing call in
+    call order (under remat the forward's, then the recompute's).  Given
+    ``replay``, the record of the same model's calls, each call routes to
+    the recorded experts instead, with the gate weights of its own logits,
+    and ``differ`` gets how many of its own choices were other ones."""
+    own_top_k = moe_dispatch._top_k
+    chosen, differ = [], []
+
+    def top_k(x, k):
+        w, i = own_top_k(x, k)
+        if replay is not None:
+            pinned = replay[len(chosen)]
+            differ.append(int((i != pinned).sum()))
+            i, w = pinned, x.gather(-1, pinned.long())
+        chosen.append(i)
+        return w, i
+
+    moe_dispatch._top_k = top_k
+    try:
+        yield chosen, differ
+    finally:
+        moe_dispatch._top_k = own_top_k
+
+
+def grad_agreement(g_a, g_b) -> dict:
+    """{leaf name: (cosine, |1 - |a| / |b||)} of two gradient trees."""
+    out = {}
+    for name, a, b in zip(leaf_paths(g_a), tree_leaves(g_a), tree_leaves(g_b)):
+        na, nb = float(a.double().norm()), float(b.double().norm())
+        out[name] = (cosine(a, b),
+                     0.0 if na == nb else abs(1 - na / nb) if nb else math.inf)
+    return out
+
+
+def report_agreement(label: str, agree: dict) -> None:
+    attn = {n: v for n, v in agree.items()
+            if n.rsplit(".", 1)[-1] in ATTN_LEAVES}
+    print(f"{label}: attention projections (cosine, norm deviation) "
+          + ", ".join(f"{n} {c:.6f} {d:.1e}" for n, (c, d) in attn.items()))
+    worst = sorted(agree.items(), key=lambda kv: kv[1][0])[:6]
+    print(f"{label}: min cosine {worst[0][1][0]:.6f} over {len(agree)} "
+          "leaves; lowest " + ", ".join(f"{n} {c:.6f} {d:.1e}"
+                                        for n, (c, d) in worst))
+
+
 def check_flash_training(model, params) -> None:
     """Flash against plain attention on the same weights and one batch of
-    1 row, where the plain path's [1, H, S, S] scores fit: the loss agrees,
-    the attention projections' gradients pass ATTN_GRAD_COSINE and every
-    leaf's FLASH_GRAD_COSINE, and no leaf's gradient is all zeros (wq, wk
-    and wv's would be if the flash kernels' gradient were dropped)."""
+    1 row, where the plain path's [1, H, S, S] scores fit, first with each
+    path routing by itself, then with the plain path replaying the flash
+    path's routing.  The losses agree; the attention projections'
+    gradients pass ATTN_GRAD_COSINE and ATTN_GRAD_NORM_RTOL, every leaf's
+    FLASH_GRAD_COSINE, and with one routing every leaf the attention
+    projections' limits; no leaf's gradient is all zeros (wq, wk and wv's
+    would be if the flash kernels' gradient were dropped)."""
     ids, tgt = train_batch(model.cfg, 1, SEED + 3)
     plain = DMoETransformerLM(dataclasses.replace(model.cfg, attn_impl="xla"),
                               device="cuda")
-    (l_flash, _), g_flash = model.value_and_grad(params, ids, tgt)
-    (l_plain, _), g_plain = plain.value_and_grad(params, ids, tgt)
-    named = {}
-    for i, (a, b) in enumerate(zip(g_flash["layers"], g_plain["layers"])):
-        for name in ("wq", "wk", "wv", "wo"):
-            named[f"layers[{i}].{name}"] = cosine(a[name], b[name])
-    leaves_f, leaves_p = tree_leaves(g_flash), tree_leaves(g_plain)
-    cosines = [cosine(a, b) for a, b in zip(leaves_f, leaves_p)]
-    names = leaf_paths(g_flash)
-    zero = [names[i] for i, g in enumerate(leaves_f) if not bool(g.any())]
-    rel = abs(float(l_flash) - float(l_plain)) / abs(float(l_plain))
+    n_layers = model.cfg.n_layers
+    with routing_log() as (flash_route, _):
+        (l_flash, m_flash), g_flash = model.value_and_grad(params, ids, tgt)
+    with routing_log() as (plain_route, _):
+        (l_plain, _), g_plain = plain.value_and_grad(params, ids, tgt)
+    moved = [int((a != b).sum())
+             for a, b in zip(flash_route[:n_layers], plain_route[:n_layers])]
+    zero = [n for n, g in zip(leaf_paths(g_flash), tree_leaves(g_flash))
+            if not bool(g.any())]
+    own = grad_agreement(g_flash, g_plain)
+    del g_plain
+    with routing_log(replay=flash_route) as (replayed, differ):
+        (l_pinned, _), g_pinned = plain.value_and_grad(params, ids, tgt)
+    assert len(replayed) == len(flash_route), (len(replayed), len(flash_route))
+    pinned = grad_agreement(g_flash, g_pinned)
+    del g_pinned, g_flash
+    rel, rel_pinned = (abs(float(l_flash) - float(x)) / abs(float(x))
+                       for x in (l_plain, l_pinned))
     print(f"flash vs plain attention, batch 1 x {model.cfg.seq_len}: loss "
-          f"{float(l_flash):.6f} vs {float(l_plain):.6f} (rel {rel:.2e}); "
-          f"min gradient cosine {min(cosines):.6f} over {len(cosines)} "
-          f"leaves; all-zero leaves {zero}")
-    print("attention-projection gradient cosines: "
-          + ", ".join(f"{k} {v:.6f}" for k, v in named.items()))
-    worst = sorted(zip(cosines, names, leaves_f, leaves_p))[:6]
-    print("lowest gradient cosines: " + ", ".join(
-        f"{n} {c:.6f} (|g| {float(a.float().norm()):.3e} vs "
-        f"{float(b.float().norm()):.3e})" for c, n, a, b in worst))
+          f"{float(l_flash):.6f} vs {float(l_plain):.6f} (rel {rel:.2e}), "
+          f"{float(l_pinned):.6f} replaying flash's routing (rel "
+          f"{rel_pinned:.2e}); dropped fraction "
+          f"{float(m_flash['dropped_fraction']):.4f}; all-zero leaves {zero}")
+    print(f"routing choices (of {ids.numel() * model.cfg.k} a layer) that "
+          f"differ, flash vs plain, per layer: {moved}; plain's own choices "
+          f"where it replays flash's routing: {differ[:n_layers]}")
+    report_agreement("own routing", own)
+    report_agreement("flash's routing", pinned)
     assert not zero, f"gradient leaves {zero} are all zeros"
-    assert rel <= FLASH_LOSS_RTOL, "flash and plain attention losses differ"
-    assert min(named.values()) >= ATTN_GRAD_COSINE, \
-        "flash and plain attention-projection gradients differ"
-    assert min(cosines) >= FLASH_GRAD_COSINE, "flash and plain gradients differ"
+    assert max(rel, rel_pinned) <= FLASH_LOSS_RTOL, \
+        "flash and plain attention losses differ"
+    for name, (cos, dev) in own.items():
+        if name.rsplit(".", 1)[-1] in ATTN_LEAVES:
+            assert cos >= ATTN_GRAD_COSINE and dev <= ATTN_GRAD_NORM_RTOL, \
+                f"flash and plain {name} gradients differ: {cos}, {dev}"
+        assert cos >= FLASH_GRAD_COSINE, f"flash and plain {name} differ: {cos}"
+    for name, (cos, dev) in pinned.items():
+        assert cos >= ATTN_GRAD_COSINE and dev <= ATTN_GRAD_NORM_RTOL, \
+            f"with one routing, flash and plain {name} differ: {cos}, {dev}"
 
 
-def time_fused_ce(shape, gen) -> dict:
+def time_fused_ce(shape, gen, results) -> None:
     """Phase 8 for K1-K3 at one shape: kernel, plain version, cuBLAS
-    yardstick, bound; a dict of timings by kernel name."""
+    yardstick, bound."""
     n, d, v = shape
     x, head, tgt, dce = ce_inputs(n, d, v, gen)
     _, lse = fce.ce_forward(x, head, tgt)
@@ -597,7 +724,6 @@ def time_fused_ce(shape, gen) -> dict:
          lambda: fce.ce_dhead_reference(x, head, tgt, lse, dce),
          4 * n * d * v, 2 * n * d + 2 * d * v + 3 * rows + 2 * d * v),
     ]
-    out = {}
     for name, kernel, plain, flops, nbytes in cases:
         ms = median_ms(kernel)
         plain_ms = median_ms(plain, reps=5, warmup=1)
@@ -605,13 +731,13 @@ def time_fused_ce(shape, gen) -> dict:
         print(f"{name} {list(shape)}: {ms:.4f} ms ({flops / ms / 1e9:.1f} "
               f"TFLOP/s), plain {plain_ms:.4f} ms, cuBLAS x@head "
               f"{yard_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-        out[name] = {"shape": [n, d, v], "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by,
-                     "yardstick_ms": yard_ms}
-    return out
+        record(results, name, shape, ms=ms, plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+               yardstick="torch.matmul(x, head) bf16 (cuBLAS), K1's product",
+               yardstick_ms=yard_ms)
 
 
-def time_attention(shape, gen, train: bool) -> dict:
+def time_attention(shape, gen, results, train: bool) -> None:
     """Phase 8 for K5 at one [B,S,H,hd] shape: the forward (with the lse
     the training path writes when ``train``) and, when ``train``, the dkv
     and dq kernels; each against its bound, its plain version and the
@@ -624,15 +750,13 @@ def time_attention(shape, gen, train: bool) -> dict:
     tensor = b * s * h * hd * 2  # bytes of one [B,S,H,hd] bf16 tensor
     stats = b * h * s * 4  # bytes of lse or di
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    out = {"flash_attn_fwd": {
-        "shape": list(shape),
-        "ms": median_ms(lambda: fa.flash_attention_fwd(q, k, v, with_lse=train)),
-        "plain_ms": median_ms(lambda: fa.attention_fwd_reference(
+    timed_here = {"flash_attn_fwd": dict(
+        ms=median_ms(lambda: fa.flash_attention_fwd(q, k, v, with_lse=train)),
+        plain_ms=median_ms(lambda: fa.attention_fwd_reference(
             q, k, v, with_lse=train), reps=5, warmup=1),
-        "library_ms": median_ms(lambda: sdpa(qt, kt, vt, is_causal=True)),
+        library_ms=median_ms(lambda: sdpa(qt, kt, vt, is_causal=True)),
         **dict(zip(("bound_ms", "bound_by"), bound(
-            2 * product, 4 * tensor + (stats if train else 0)))),
-    }}
+            2 * product, 4 * tensor + (stats if train else 0)))))}
     if train:
         o, lse = fa.flash_attention_fwd(q, k, v)
         di = fa._row_dot(o, do)
@@ -643,27 +767,21 @@ def time_attention(shape, gen, train: bool) -> dict:
             out_t, leaves, do_t, retain_graph=True))
         plain_ms = median_ms(lambda: fa.attention_bwd_reference(
             q, k, v, o, lse, do), reps=3, warmup=1)
-        pair_ms, _ = bound(5 * product, 5 * tensor + 2 * stats + 3 * tensor)
         for name, fn, n_products, n_out in (
                 ("flash_attn_bwd_dkv",
                  lambda: fa.flash_attention_dkv(q, k, v, do, lse, di), 4, 2),
                 ("flash_attn_bwd_dq",
                  lambda: fa.flash_attention_dq(q, k, v, do, lse, di), 3, 1)):
-            bound_ms, bound_by = bound(n_products * product,
-                                       (4 + n_out) * tensor + 2 * stats)
-            out[name] = {
-                "shape": list(shape), "ms": median_ms(fn),
-                "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": None,
-                "yardstick": "torch.nn.functional.scaled_dot_product_attention"
-                             "(is_causal=True) backward: dq, dk and dv "
-                             "together",
-                "yardstick_ms": yard_ms,
-                "plain_computes": "dq, dk and dv together",
-                "pair_bound_ms": pair_ms,
-            }
+            timed_here[name] = dict(
+                ms=median_ms(fn), plain_ms=plain_ms,
+                plain_computes="dq, dk and dv together", library_ms=None,
+                yardstick="torch.nn.functional.scaled_dot_product_attention"
+                          "(is_causal=True) backward: dq, dk and dv together",
+                yardstick_ms=yard_ms,
+                **dict(zip(("bound_ms", "bound_by"), bound(
+                    n_products * product, (4 + n_out) * tensor + 2 * stats))))
         del leaves, out_t
-    for name, row in out.items():
+    for name, row in timed_here.items():
         n_products = {"flash_attn_fwd": 2, "flash_attn_bwd_dkv": 4,
                       "flash_attn_bwd_dq": 3}[name]
         lib = row["library_ms"] if row["library_ms"] is not None \
@@ -672,12 +790,14 @@ def time_attention(shape, gen, train: bool) -> dict:
               f"({n_products * product / row['ms'] / 1e9:.1f} TFLOP/s), plain "
               f"{row['plain_ms']:.4f} ms, sdpa {lib:.4f} ms, bound "
               f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+        form = "with lse" if train and name == "flash_attn_fwd" else None
+        record(results, name, shape, form, **row)
     if train:
-        both = out["flash_attn_bwd_dkv"]["ms"] + out["flash_attn_bwd_dq"]["ms"]
+        both = (timed_here["flash_attn_bwd_dkv"]["ms"]
+                + timed_here["flash_attn_bwd_dq"]["ms"])
+        pair_ms, _ = bound(5 * product, 8 * tensor + 2 * stats)
         print(f"K5 backward (dkv + dq) {list(shape)}: {both:.4f} ms, "
-              f"5-product bound {out['flash_attn_bwd_dq']['pair_bound_ms']:.4f} "
-              f"ms, sdpa backward {out['flash_attn_bwd_dq']['yardstick_ms']:.4f} ms")
-    return out
+              f"5-product bound {pair_ms:.4f} ms, sdpa backward {yard_ms:.4f} ms")
 
 
 def main() -> int:
@@ -708,19 +828,14 @@ def main() -> int:
 
     phase("kernels against their plain versions")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    main_shape = (2, 4096, 8, 64)  # [B,S,H,hd] of one prefill layer
-    flash_err = check_flash(main_shape, gen)
-    for shape in [(1, 1000, 8, 64), (3, 70, 2, 64), (1, 1, 1, 64)]:
-        check_flash(shape, gen)
-    bwd_errs = check_flash_bwd((1, 8192, 8, 64), gen)
-    for shape in [(2, 4096, 8, 64), (1, 1000, 8, 64)]:
-        check_flash_bwd(shape, gen)
-    # [n, d, V] of flagship-train's CE: 176 x 256 tokens
-    ce_shape = (TRAIN_BATCH * FLAGSHIP_TRAIN["seq_len"],
-                FLAGSHIP_TRAIN["d_model"], FLAGSHIP_TRAIN["vocab_size"])
-    ce_errs = check_fused_ce(ce_shape, gen)
-    for shape in [(1024, 128, 2048), (384, 384, 4096)]:
-        check_fused_ce(shape, gen)
+    results = {}  # kernel name -> {(shape, form): numbers measured there}
+    for shape in [SERVE_ATTN, (1, 1000, 8, 64), (3, 70, 2, 64), (1, 1, 1, 64)]:
+        check_flash(shape, gen, results)
+    for shape in [TRAIN_ATTN, (1, 8192, 8, 64), (2, 4096, 8, 64),
+                  (1, 1000, 8, 64)]:
+        check_flash_bwd(shape, gen, results)
+    for shape in [CE_TRAIN, CE_8K_TRAIN, (1024, 128, 2048), (384, 384, 4096)]:
+        check_fused_ce(shape, gen, results)
     torch.cuda.empty_cache()
 
     phase("small models: card against cpu")
@@ -728,68 +843,41 @@ def main() -> int:
     small_train_reference(counters)
 
     phase("serving flagship-8k")
-    serve_launches = serve_flagship(counters)
+    launches = {"flagship-8k (one generate)": serve_flagship(counters)}
     torch.cuda.empty_cache()
 
-    phase("training flagship-train")
-    trained = {"flagship-train": train("flagship-train", counters)}
-    torch.cuda.empty_cache()
-
-    phase("training flagship-8k-train")
-    trained["flagship-8k-train"] = train("flagship-8k-train", counters)
-    torch.cuda.empty_cache()
+    for name in TRAINING:
+        phase(f"training {name}")
+        launches[f"{name} ({TRAIN_STEPS} steps)"] = train(name, counters)
+        torch.cuda.empty_cache()
 
     phase("timings")
-    train_shape = (TRAIN_8K_BATCH, FLAGSHIP_8K_TRAIN["seq_len"],
-                   FLAGSHIP_8K_TRAIN["n_heads"],
-                   FLAGSHIP_8K_TRAIN["d_model"] // FLAGSHIP_8K_TRAIN["n_heads"])
-    serve_times = time_attention(main_shape, gen, train=False)
+    time_attention(SERVE_ATTN, gen, results, train=False)
     torch.cuda.empty_cache()
-    train_times = time_attention(train_shape, gen, train=True)
+    time_attention(TRAIN_ATTN, gen, results, train=True)
     torch.cuda.empty_cache()
-    ce_times = time_fused_ce(ce_shape, gen)
-    ce_8k_shape = (TRAIN_8K_BATCH * FLAGSHIP_8K_TRAIN["seq_len"], *ce_shape[1:])
-    ce_8k_times = time_fused_ce(ce_8k_shape, gen)
+    for shape in (CE_TRAIN, CE_8K_TRAIN):
+        time_fused_ce(shape, gen, results)
 
-    def by_path(name):
-        return {"flagship-8k (one generate)": serve_launches[name],
-                **{f"{cfg} ({TRAIN_STEPS} steps)": run["launches"][name]
-                   for cfg, run in trained.items()}}
-
-    errs = {"flash_attn_fwd": flash_err, **bwd_errs, **ce_errs}
     kernels = []
-    for name, source, replaces, main_times, train_times_of in [
-        ("flash_attn_fwd", "flash_attn_fwd.cu",
-         "learning_at_home_tpu/models/trunk.py:73",
-         serve_times["flash_attn_fwd"], train_times["flash_attn_fwd"]),
-        ("flash_attn_bwd_dkv", "flash_attn_bwd.cu", LIBRARY_FLASH + ":941",
-         train_times["flash_attn_bwd_dkv"], None),
-        ("flash_attn_bwd_dq", "flash_attn_bwd.cu", LIBRARY_FLASH + ":1287",
-         train_times["flash_attn_bwd_dq"], None),
-        *((ce, "fused_ce.cu", f"learning_at_home_tpu/ops/fused_ce.py:{line}",
-           ce_times[ce], ce_8k_times[ce])
-          for ce, line in (("fused_ce_fwd", 58), ("fused_ce_dx", 96),
-                           ("fused_ce_dhead", 124))),
-    ]:
-        paths = by_path(name)
-        row = {
+    for name, (source, replaces, shape) in KERNELS.items():
+        entries = results[name]
+        for entry in entries.values():
+            assert "ms" not in entry or "max_abs_err" in entry, (name, entry)
+        head = entries[(shape, None)]
+        assert CONTRACT_KEYS <= set(head), (name, CONTRACT_KEYS - set(head))
+        paths = {path: counts[name] for path, counts in launches.items()}
+        kernels.append({
             "name": name,
             "route": "cuda",
             "source": f"learning_at_home_tpu_torch/csrc/{source}",
             "replaces": replaces,
             "launches": sum(paths.values()),
             "launches_by_path": paths,
-            "max_abs_err": errs[name],
-            **main_times,
-        }
-        row.setdefault("library_ms", None)
-        if train_times_of is not None:
-            row["at_flagship_8k_train"] = train_times_of
-        if name.startswith("fused_ce"):
-            row["yardstick"] = "torch.matmul(x, head) bf16 (cuBLAS), K1's product"
-        kernels.append(row)
-    print(f"lse of flash_attn_fwd: max|err| {bwd_errs['lse']:.3e} at "
-          f"[1, 8192, 8, 64] (limit {LSE_ATOL})")
+            **head,
+            "other_shapes": [e for key, e in entries.items()
+                             if key != (shape, None)],
+        })
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

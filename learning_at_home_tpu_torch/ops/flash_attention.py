@@ -94,14 +94,16 @@ def _row_dot(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     return (o.to(ct) * do.to(ct)).sum(-1).transpose(1, 2).contiguous()
 
 
-def _bwd_plain(q, k, v, do, lse, di):
+def _bwd_plain(q, k, v, do, lse, di, dq: bool = True, dkv: bool = True):
     """``(dq, dk, dv)`` of causal attention from the saved ``lse`` and
     ``di``, with the library's numerics (``flash_attention.py:894-920``):
     compute-dtype scores, ``p = exp(s * scale - lse)`` masked above the
     diagonal, ``p`` and ``ds = p * (dp - di) * scale`` rounded to the input
     dtype before the dV, dK and dQ products, compute-dtype accumulation,
-    outputs in q's dtype.  One batch row at a time, so only one row's
-    [H, S, S] intermediates are live."""
+    outputs in q's dtype.  ``dq=False`` leaves out dq and ``dkv=False``
+    dk and dv (None in their place), as each kernel computes only its own.
+    One batch row at a time, so only one row's [H, S, S] intermediates are
+    live."""
     dt, ct = q.dtype, _compute_dtype(q.dtype)
     scale = 1.0 / math.sqrt(q.shape[-1])
     grads = []
@@ -110,14 +112,18 @@ def _bwd_plain(q, k, v, do, lse, di):
         scores, causal = _scaled_scores(qi, ki)
         p = torch.exp(scores - lse[i: i + 1].to(ct)[..., None])
         p = p.masked_fill(~causal, 0.0)
-        dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dt).to(ct), doi)
+        dv = (torch.einsum("bhqk,bqhd->bkhd", p.to(dt).to(ct), doi)
+              if dkv else None)
         dp = torch.einsum("bqhd,bkhd->bhqk", doi, vi)
         ds = (p * (dp - di[i: i + 1].to(ct)[..., None]) * scale).to(dt).to(ct)
         del p, dp, scores
-        dq = torch.einsum("bhqk,bkhd->bqhd", ds, ki)
-        dk = torch.einsum("bhqk,bqhd->bkhd", ds, qi)
-        grads.append((dq, dk, dv))
-    return tuple(torch.cat(g).to(dt) for g in zip(*grads))
+        grads.append((
+            torch.einsum("bhqk,bkhd->bqhd", ds, ki) if dq else None,
+            torch.einsum("bhqk,bqhd->bkhd", ds, qi) if dkv else None,
+            dv,
+        ))
+    return tuple(None if g[0] is None else torch.cat(g).to(dt)
+                 for g in zip(*grads))
 
 
 def attention_bwd_reference(q, k, v, o, lse, do):
@@ -239,7 +245,7 @@ def flash_attention_dkv(q, k, v, do, lse, di):
     [B,H,S] f32).  CPU tensors take the plain version; CUDA tensors launch
     the kernel (``flash_attention_dkv.launches``)."""
     if _on_cpu(q, "flash_attention_dkv"):
-        return _bwd_plain(q, k, v, do, lse, di)[1:]
+        return _bwd_plain(q, k, v, do, lse, di, dq=False)[1:]
     _check_cuda_inputs(q, k, v, do)
     _check_stats(q, lse, di)
     dk, dv = torch.empty_like(q), torch.empty_like(q)
@@ -256,7 +262,7 @@ def flash_attention_dq(q, k, v, do, lse, di):
     :func:`flash_attention_dkv`.  CPU tensors take the plain version; CUDA
     tensors launch the kernel (``flash_attention_dq.launches``)."""
     if _on_cpu(q, "flash_attention_dq"):
-        return _bwd_plain(q, k, v, do, lse, di)[0]
+        return _bwd_plain(q, k, v, do, lse, di, dkv=False)[0]
     _check_cuda_inputs(q, k, v, do)
     _check_stats(q, lse, di)
     dq = torch.empty_like(q)

@@ -16,6 +16,7 @@ versions; the Hopper kernels themselves are tested on the card by
 test_torch_flash_bwd_cuda.py."""
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -65,21 +66,35 @@ def _inputs(seed, shape, dtype):
     return [_bf16_np(a) for a in arrays] if dtype == "bf16" else arrays
 
 
-def _jax_grads(impl, q, k, v, do, jdt):
-    """jax.grad of ``sum(attention_core(q, k, v, impl) * do)`` under jit;
-    the library kernel in interpret mode for ``impl="flash"``."""
-    def loss(q, k, v, do):
-        out = jtrunk.attention_core(q, k, v, impl=impl)
-        return jnp.sum(out.astype(jnp.float32) * do.astype(jnp.float32))
+def _jax_vjp(impl, q, k, v, do, jdt):
+    """``(o, [dq, dk, dv])`` of ``attention_core(q, k, v, impl)`` and its
+    vjp at ``do`` under jit, as numpy f32; the library kernel in interpret
+    mode for ``impl="flash"``."""
+    def run(q, k, v, do):
+        out, vjp = jax.vjp(
+            lambda q, k, v: jtrunk.attention_core(q, k, v, impl=impl),
+            q, k, v)
+        return out, vjp(do)
 
-    fn = jax.jit(jax.grad(loss, argnums=(0, 1, 2)))
+    fn = jax.jit(run)
     args = [jnp.asarray(a, jdt) for a in (q, k, v, do)]
     if impl == "flash":
         with pltpu.force_tpu_interpret_mode():
-            grads = fn(*args)
+            out, grads = fn(*args)
     else:
-        grads = fn(*args)
-    return [np.asarray(g.astype(jnp.float32)) for g in grads]
+        out, grads = fn(*args)
+    return (np.asarray(out.astype(jnp.float32)),
+            [np.asarray(g.astype(jnp.float32)) for g in grads])
+
+
+@functools.lru_cache(maxsize=None)
+def _library_case(dtype):
+    """The numpy-seeded inputs at SHAPE and the library kernel's ``o`` and
+    gradients for them: one interpret-mode call per dtype, shared by the
+    tests that need it."""
+    q, k, v, do = _inputs(0, SHAPE, dtype)
+    jdt = jnp.float32 if dtype == "f32" else jnp.bfloat16
+    return (q, k, v, do), *_jax_vjp("flash", q, k, v, do, jdt)
 
 
 def _torch_grads(q, k, v, do, tdt):
@@ -101,17 +116,15 @@ def _bf16_ulp(x: float) -> float:
 
 # f32: the two sides differ in the f32 summation order and in how p is
 # formed (exp(s - lse) here, exp(s - m) / l in the library), ~4e-6 at
-# this shape, so 1e-4.  bf16: both round p and ds to bf16 before the
-# products and the outputs to bf16; between two f32 values a hair apart
-# each rounding can fall on either side of a boundary.  So two bf16 ulps
-# of the gradient's largest value: one for the output's rounding, one for
-# the roundings of p and ds inside the sums (and of o inside di).
+# this shape, so 1e-4.  bf16, end to end: each side's backward starts
+# from its own forward's bf16 o, and the two o differ by an ulp here and
+# there, which di = rowsum(o * do) carries into every ds of its row.  So
+# two bf16 ulps of the gradient's largest value: one for the output's
+# rounding, one for di's (the test below holds the backward alone to one).
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_flash_grads_match_the_jax_library_kernel(dtype):
-    q, k, v, do = _inputs(0, SHAPE, dtype)
-    jdt, tdt = ((jnp.float32, torch.float32) if dtype == "f32"
-                else (jnp.bfloat16, torch.bfloat16))
-    want = _jax_grads("flash", q, k, v, do, jdt)
+    (q, k, v, do), _, want = _library_case(dtype)
+    tdt = torch.float32 if dtype == "f32" else torch.bfloat16
     got = _torch_grads(q, k, v, do, tdt)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         atol = 1e-4 if dtype == "f32" else 2 * _bf16_ulp(np.abs(w).max())
@@ -119,12 +132,32 @@ def test_flash_grads_match_the_jax_library_kernel(dtype):
         assert np.abs(w).max() > 0.5  # not a vacuous comparison
 
 
+def test_bf16_backward_from_the_library_output_within_one_ulp():
+    """The port's backward (``flash_attention_bwd``, the Function's
+    backward) fed the library forward's own bf16 ``o``, so di is the
+    library's up to f32 summation order: dq, dk and dv within one bf16 ulp
+    of the gradient's largest value.  Both sides round p and ds to bf16
+    from f32 values a hair apart (exp(s - lse) here, exp(s - m) / l in the
+    library), which moves a sum by far less than an ulp; the outputs'
+    rounding to bf16 then differs by at most one ulp."""
+    (q, k, v, do), o, want = _library_case("bf16")
+    tq, tk, tv, to, tdo = (torch.tensor(a, dtype=torch.bfloat16)
+                           for a in (q, k, v, o, do))
+    _, lse = fa.attention_fwd_reference(tq, tk, tv)
+    got = fa.flash_attention_bwd(tq, tk, tv, to, lse, tdo)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16
+        np.testing.assert_allclose(g.float().numpy(), w,
+                                   atol=_bf16_ulp(np.abs(w).max()), rtol=0,
+                                   err_msg=name)
+
+
 def test_ragged_flash_grads_match_jax_plain_attention():
     """S = 200 is no multiple of the library's blocks; the port's kernels
     take any S, so its gradient is held against ``impl="xla"`` (f32, the
     same 1e-4 as above)."""
     q, k, v, do = _inputs(1, (1, 200, 2, 64), "f32")
-    want = _jax_grads("xla", q, k, v, do, jnp.float32)
+    _, want = _jax_vjp("xla", q, k, v, do, jnp.float32)
     got = _torch_grads(q, k, v, do, torch.float32)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         np.testing.assert_allclose(g, w, atol=1e-4, rtol=0, err_msg=name)
