@@ -15,7 +15,9 @@ Phases, each of which asserts (none catches its own failure):
                ptxas's registers and spills.
 3. kernels  -- each kernel against its plain PyTorch version on the card,
                at the main paths' shapes and at smaller ones, within the
-               stated tolerances.
+               stated tolerances; K4 (token dispatch) bit for bit on ragged
+               cases (f32 rows of d = 100, one token, every slot empty,
+               every slot full).
 4. small    -- a tiny f32 model on the card against the same model on the
                CPU (the CPU path is the one the tests hold against the JAX
                package): logits and greedy tokens; then one train step of
@@ -26,7 +28,8 @@ Phases, each of which asserts (none catches its own failure):
                of 4096 tokens with 32 greedy new tokens through
                ``generate(use_cache=True)``; the kernel counts must show
                the path went through the flash kernel; the prefill logits
-               must match the same model with plain attention.
+               must match the same model with plain attention.  The
+               prefill's MoE dispatch plans are kept for phase 10.
 6. training -- ``flagship-train`` (the same model at seq_len 256 with the
                single-chip training recipe: bf16 params, remat "full",
                per-layer tuple layout, fused CE, fused Adafactor 1e-3,
@@ -46,12 +49,35 @@ Phases, each of which asserts (none catches its own failure):
                plain path replaying the flash path's routing (the
                routing choices that differ are counted per layer), and
                no leaf's gradient may be all zeros.
-8. timings  -- CUDA-event medians of each kernel, its plain version and
+8. balanced training -- ``flagship-train-balanced``: ``flagship-train``
+               with the balanced-routing recipe of bench.py (router jitter
+               0.1, aux-loss weight 5e-2): the first step's dropped
+               fraction must be below the same weights' without jitter,
+               and remat's recompute must route every token as the forward
+               did; BALANCE_STEPS untimed steps, then TRAIN_STEPS timed
+               ones with ``flagship-train``'s launches per step; the
+               dropped fraction of every step is printed; each layer's
+               jitter noise drawn on the card must equal the CPU's bit for
+               bit.
+9. short runs -- ``flagship-train`` with expert-choice gating and with
+               remat "dots": a warm-up step and SHORT_STEPS timed steps
+               each, the loss must fall; expert choice prints its
+               uncovered fraction; "dots" must give "full"'s loss and
+               gradients on one batch bit for bit and prints the memory of
+               both.
+10. token dispatch -- K4's path: ``dispatch_tokens_auto(use_kernel=True)``
+               on the dispatch plans the flagship's MoE layers made in
+               phases 5, 6, 7 and 8 (the balanced run's after its balance
+               steps); each output must equal the plain version's bit for
+               bit.
+11. timings -- CUDA-event medians of each kernel, its plain version and
                the PyTorch call computing the same function (SDPA for the
-               attention forward; for K1-K3 and the attention backward,
-               which no single call computes kernel by kernel, a
-               yardstick: the cuBLAS product ``x @ head`` of K1's shape,
-               and SDPA's backward of dq, dk and dv together).
+               attention forward; for K1-K3, the attention backward and
+               K4, which no single call computes, a yardstick: the cuBLAS
+               product ``x @ head`` of K1's shape, SDPA's backward of dq,
+               dk and dv together, and ``index_select`` of the same rows);
+               and the router-jitter noise of one layer drawn without its
+               cache.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA card or
@@ -71,6 +97,7 @@ import time
 
 import torch
 
+from learning_at_home_tpu_torch import random as prng
 from learning_at_home_tpu_torch.models.transformer import (
     DMoETransformerConfig,
     DMoETransformerLM,
@@ -79,7 +106,9 @@ from learning_at_home_tpu_torch.ops import build
 from learning_at_home_tpu_torch.ops import flash_attention as fa
 from learning_at_home_tpu_torch.ops import fused_ce as fce
 from learning_at_home_tpu_torch.ops import moe_dispatch
+from learning_at_home_tpu_torch.ops import token_dispatch as td
 from learning_at_home_tpu_torch.ops.fused_adafactor import fused_adafactor
+from learning_at_home_tpu_torch.parallel import sharded_moe
 from learning_at_home_tpu_torch.tree import tree_leaves, tree_map
 
 SEED = 0
@@ -107,11 +136,24 @@ TRAIN_BATCH = 176
 # (the repo publishes no long-context batch); expert capacity 320
 FLAGSHIP_8K_TRAIN = dict(FLAGSHIP_TRAIN, seq_len=8192)
 TRAIN_8K_BATCH = 4
+# the flagship's balanced-routing recipe of bench.py (_balanced_variant):
+# router jitter 0.1 and aux-loss weight 5e-2, BALANCE_STEPS untimed steps
+# before the timed ones
+FLAGSHIP_TRAIN_BALANCED = dict(FLAGSHIP_TRAIN, router_jitter=0.1,
+                               aux_loss_weight=5e-2)
+BALANCE_STEPS = 30
 TRAINING = {
     "flagship-train": (FLAGSHIP_TRAIN, TRAIN_BATCH),
     "flagship-8k-train": (FLAGSHIP_8K_TRAIN, TRAIN_8K_BATCH),
+    "flagship-train-balanced": (FLAGSHIP_TRAIN_BALANCED, TRAIN_BATCH),
+    # the two short runs: expert-choice gating, and remat "dots"
+    "flagship-train-expert-choice": (
+        dict(FLAGSHIP_TRAIN, gating="expert_choice"), TRAIN_BATCH),
+    "flagship-train-dots": (dict(FLAGSHIP_TRAIN, remat_policy="dots"),
+                            TRAIN_BATCH),
 }
 TRAIN_STEPS = 5
+SHORT_STEPS = 3  # the expert-choice and "dots" runs
 # the main paths' kernel shapes: [B,S,H,hd] of one flagship-8k prefill
 # layer and of one flagship-8k-train layer; [n, d, V] of each training
 # configuration's CE
@@ -120,7 +162,12 @@ TRAIN_ATTN = (TRAIN_8K_BATCH, FLAGSHIP_8K_TRAIN["seq_len"],
               FLAGSHIP_8K_TRAIN["n_heads"],
               FLAGSHIP_8K_TRAIN["d_model"] // FLAGSHIP_8K_TRAIN["n_heads"])
 CE_TRAIN, CE_8K_TRAIN = ((batch * cfg["seq_len"], cfg["d_model"],
-                          cfg["vocab_size"]) for cfg, batch in TRAINING.values())
+                          cfg["vocab_size"]) for cfg, batch in
+                         list(TRAINING.values())[:2])
+# [n, d, E, C] of the MoE token dispatch on each path (C at capacity
+# factor 1.25, top-2): flagship-train (and its balanced run), the
+# flagship-8k prefill, flagship-8k-train
+DISPATCH_TRAIN = (45056, 512, 256, 440)
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
@@ -140,6 +187,9 @@ KERNELS = {
               CE_TRAIN)
        for name, line in (("fused_ce_fwd", 58), ("fused_ce_dx", 96),
                           ("fused_ce_dhead", 124))},
+    "token_dispatch": ("token_dispatch.cu",
+                       "learning_at_home_tpu/ops/pallas_dispatch.py:44",
+                       DISPATCH_TRAIN),
 }
 CONTRACT_KEYS = {"max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                  "library_ms"}
@@ -209,8 +259,13 @@ def card_line() -> str:
     return out[0].strip()
 
 
-def median_ms(fn, reps: int = 25, warmup: int = 5) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn`` after warm-up."""
+def median_ms(fn, reps: int = 25, warmup: int = 5,
+              queue_ahead: bool = False) -> float:
+    """Median of ``reps`` CUDA-event timings of ``fn`` after warm-up.
+    ``queue_ahead`` holds the card in a ~1 ms spin before each start
+    event, so that ``fn``'s launches are queued before the card reaches
+    them and the events time the card's work, not the host's Python
+    (for calls of tens of microseconds)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -218,6 +273,8 @@ def median_ms(fn, reps: int = 25, warmup: int = 5) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if queue_ahead:
+            torch.cuda._sleep(2_000_000)  # clock cycles
         start.record()
         fn()
         end.record()
@@ -359,6 +416,49 @@ def check_fused_ce(shape, gen, results) -> None:
         record(results, name, shape, max_abs_err=err)
 
 
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def _index_plan(token_for_slot: torch.Tensor) -> moe_dispatch.IndexDispatchPlan:
+    """A plan holding only what the dispatch reads."""
+    return moe_dispatch.IndexDispatchPlan(token_for_slot, None, None, None,
+                                          None)
+
+
+def dispatch_err(name, out, x, token_for_slot) -> float:
+    """max |K4 - plain| on one plan, once K4's output is shown to equal
+    its plain version's bit for bit."""
+    want = moe_dispatch.dispatch_tokens_indexed(x, _index_plan(token_for_slot))
+    assert out.shape == want.shape and out.dtype == want.dtype, name
+    assert torch.equal(_bits(out), _bits(want)), f"token_dispatch {name}"
+    return float((out.float() - want.float()).abs().max())
+
+
+def check_dispatch_ragged(gen, results) -> None:
+    """K4 on the cases outside the path's shapes: f32 rows of d = 100, one
+    token, a plan with every slot empty and one with every slot full."""
+    x = torch.randn((300, 100), generator=gen, device="cuda")
+    tfs = torch.randint(-1, 300, (8, 40), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    cases = [("f32 d=100", x, tfs),
+             ("n=1", x[:1].to(torch.bfloat16), torch.tensor(
+                 [[0, -1, 0], [-1, 0, -1]], dtype=torch.int32, device="cuda")),
+             ("all empty", x.to(torch.bfloat16), torch.full_like(tfs, -1)),
+             ("all full", x.to(torch.bfloat16), torch.randperm(
+                 300, generator=gen, device="cuda").reshape(5, 60)
+              .to(torch.int32))]
+    for form, xx, t in cases:
+        out = td.dispatch_tokens_kernel(xx, _index_plan(t))
+        torch.cuda.synchronize()
+        record(results, "token_dispatch", (*xx.shape, *t.shape), form,
+               max_abs_err=dispatch_err(form, out, xx, t))
+        if form == "all empty":
+            assert not out.any()
+    print(f"token_dispatch ragged cases ({', '.join(c[0] for c in cases)}): "
+          "bit for bit")
+
+
 def small_reference() -> None:
     cfg = DMoETransformerConfig(vocab_size=256, d_model=64, n_layers=2,
                                 n_heads=4, seq_len=32, num_experts=4, k=2,
@@ -456,8 +556,32 @@ def timed(fn) -> tuple[object, float]:
     return out, time.perf_counter() - t0
 
 
-def serve_flagship(counters) -> dict:
-    """Phase 5; returns the kernel counts of one generate."""
+@contextlib.contextmanager
+def capture_dispatch(plans: list, label: str, count: int):
+    """Keeps ``(label, layer, x, token_for_slot)`` of the first ``count``
+    gather dispatches of the MoE layers (a forward's layers, in order):
+    the inputs K4's path is driven with."""
+    own = sharded_moe.dispatch_tokens_indexed
+    seen = []
+
+    def dispatch(x, plan):
+        if len(seen) < count:
+            seen.append((label, len(seen), x.detach(),
+                         plan.token_for_slot.detach()))
+        return own(x, plan)
+
+    sharded_moe.dispatch_tokens_indexed = dispatch
+    try:
+        yield
+    finally:
+        sharded_moe.dispatch_tokens_indexed = own
+    assert len(seen) == count, (label, len(seen))
+    plans.extend(seen)
+
+
+def serve_flagship(counters, plans: list) -> dict:
+    """Phase 5; returns the kernel counts of one generate and keeps the
+    prefill's dispatch plans in ``plans``."""
     cfg = DMoETransformerConfig(**FLAGSHIP_8K)
     model = DMoETransformerLM(cfg, device="cuda")
     assert model.cfg.attn_impl == "flash", model.cfg.attn_impl
@@ -468,7 +592,8 @@ def serve_flagship(counters) -> dict:
         0, cfg.vocab_size, (batch, prompt_len), dtype=torch.int32,
         device="cuda", generator=torch.Generator(device="cuda").manual_seed(SEED + 1),
     )
-    model.generate(params, prompts, 2, use_cache=True)  # warm-up
+    with capture_dispatch(plans, "flagship-8k prefill", cfg.n_layers):
+        model.generate(params, prompts, 2, use_cache=True)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -539,50 +664,149 @@ def build_train(name: str):
     return model, params, optimizer, opt_state, step, ids, tgt
 
 
-def train(name: str, counters) -> dict:
-    """Phases 6 and 7; returns the kernel counts of the TRAIN_STEPS timed
-    steps."""
+def train(name: str, counters, plans: list) -> dict:
+    """Phases 6-9: one training configuration; returns the number of its
+    timed steps and their kernel counts.  The first step's dispatch plans go
+    to ``plans`` (the balanced run's: its last balance step's)."""
     model, params, _, opt_state, step, ids, tgt = build_train(name)
     cfg = model.cfg
     n_params = sum(t.numel() for t in tree_leaves(params))
     tokens = ids.numel()
-    (params, opt_state, loss0, metrics0), warm_s = timed(
-        lambda: step(params, opt_state, ids, tgt))
+    balanced = bool(cfg.router_jitter)
+    short = cfg.gating == "expert_choice" or cfg.remat_policy == "dots"
+    n_steps = SHORT_STEPS if short else TRAIN_STEPS
+    capture = (capture_dispatch(plans, name, cfg.n_layers)
+               if cfg.gating == "topk" and not (balanced or short)
+               else contextlib.nullcontext())
+    if balanced:
+        clean_dropped = dropped_without_jitter(model, params, ids, tgt)
+    with capture, routing_log() as (chosen, _):
+        (params, opt_state, loss0, metrics0), warm_s = timed(
+            lambda: step(params, opt_state, ids, tgt))
     print(f"params {n_params / 1e9:.3f} B ({tree_leaves(params)[0].dtype}); "
           f"batch {ids.shape[0]} x {cfg.seq_len}; "
           f"warm-up step {warm_s * 1e3:.1f} ms, loss {float(loss0):.5f}, "
           f"metrics {({k: round(float(v), 5) for k, v in metrics0.items()})}")
+    dropped = [float(metrics0["dropped_fraction"])]
+    if balanced:
+        check_recompute_routing(chosen, cfg.n_layers)
+        print(f"first step: dropped fraction {dropped[0]:.5f} with jitter, "
+              f"{clean_dropped:.5f} without it on the same weights")
+        assert dropped[0] < clean_dropped, "jitter split no ties"
+        for i in range(BALANCE_STEPS - 1):
+            last = i == BALANCE_STEPS - 2
+            with (capture_dispatch(plans, f"{name} after balance",
+                                   cfg.n_layers)
+                  if last else contextlib.nullcontext()):
+                params, opt_state, _, metrics = step(params, opt_state, ids,
+                                                     tgt)
+            dropped.append(float(metrics["dropped_fraction"]))
+    del chosen
     torch.cuda.reset_peak_memory_stats()
     reset_counts(counters)
     step_ms, losses = [], []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(n_steps):
         (params, opt_state, loss, metrics), dt = timed(
             lambda: step(params, opt_state, ids, tgt))
         step_ms.append(dt * 1e3)
         losses.append(float(loss))
+        dropped.append(float(metrics["dropped_fraction"]))
     launches = read_counts(counters)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    per_step = {k: n / TRAIN_STEPS for k, n in launches.items()}
-    print(f"kernel launches in {TRAIN_STEPS} train steps: {launches}; "
+    per_step = {k: n / n_steps for k, n in launches.items()}
+    print(f"kernel launches in {n_steps} train steps: {launches}; "
           f"per step {per_step}")
     print(f"losses {[round(float(loss0), 5)] + [round(x, 5) for x in losses]}; "
           f"last metrics {({k: round(float(v), 5) for k, v in metrics.items()})}")
+    label = ("uncovered fraction (no expert picked the token)"
+             if cfg.gating == "expert_choice" else "dropped fraction")
+    print(f"{label}: first step {dropped[0]:.5f}, last step "
+          f"{dropped[-1]:.5f}; every step {[round(x, 4) for x in dropped]}")
     med = statistics.median(step_ms)
     print(f"{name} step: median {med:.1f} ms (all {[round(t, 1) for t in step_ms]}), "
           f"{tokens / med * 1e3:.0f} tokens/s, peak {peak_gb:.2f} GB")
     assert all(math.isfinite(x) for x in losses), losses
     assert losses[-1] < float(loss0), "the loss did not fall on a fixed batch"
     flash = cfg.attn_impl == "flash"
-    want = {"fused_ce_fwd": 1, "fused_ce_dx": 1, "fused_ce_dhead": 1,
+    want = {**dict.fromkeys(counters, 0),
+            "fused_ce_fwd": 1, "fused_ce_dx": 1, "fused_ce_dhead": 1,
             "flash_attn_fwd": 2 * cfg.n_layers if flash else 0,
             "flash_attn_bwd_dkv": cfg.n_layers if flash else 0,
             "flash_attn_bwd_dq": cfg.n_layers if flash else 0}
     assert per_step == want, (per_step, want)
     if flash:
         check_flash_training(model, params)
-    else:
+    elif balanced:
+        check_jitter_noise(cfg, tokens)
+    elif cfg.remat_policy == "dots":
+        check_dots(model, params, ids, tgt)
+    elif not short:
         check_fused_training(model, params, ids, tgt)
-    return launches
+    return n_steps, launches
+
+
+def dropped_without_jitter(model, params, ids, tgt) -> float:
+    """The dropped fraction of the same weights and batch routed without
+    jitter (a forward only)."""
+    clean = DMoETransformerLM(dataclasses.replace(model.cfg, router_jitter=0.0),
+                              device="cuda")
+    with torch.no_grad():
+        _, metrics = clean.loss_fn(params, ids, tgt)
+    return float(metrics["dropped_fraction"])
+
+
+def check_recompute_routing(chosen, n_layers: int) -> None:
+    """Remat's recompute (the layers in reverse) routed every token as the
+    forward did: the jitter noise is the same draw in both."""
+    assert len(chosen) == 2 * n_layers, len(chosen)
+    differ = [int((fwd != again).sum())
+              for fwd, again in zip(chosen[:n_layers], chosen[::-1])]
+    print(f"routing choices that differ, forward vs remat recompute, per "
+          f"layer: {differ}")
+    assert not any(differ), differ
+
+
+def check_jitter_noise(cfg, n_tokens: int) -> None:
+    """Each layer's jitter noise as the card drew it for the run equals
+    the CPU's draw bit for bit (the CPU side is what the tests hold
+    against jax.random)."""
+    shape = (n_tokens, cfg.num_experts)
+    card = torch.device("cuda", torch.cuda.current_device())
+    hits = moe_dispatch._jitter_noise.cache_info().hits
+    for salt in range(cfg.n_layers):
+        args = (cfg.router_jitter, salt, shape, torch.float32)
+        on_card = moe_dispatch._jitter_noise(*args, card)
+        on_cpu = moe_dispatch._jitter_noise(*args, torch.device("cpu"))
+        assert torch.equal(_bits(on_card).cpu(), _bits(on_cpu)), salt
+    assert moe_dispatch._jitter_noise.cache_info().hits == hits + cfg.n_layers
+    print(f"jitter noise {list(shape)} of layers 0-{cfg.n_layers - 1}: card "
+          f"and cpu bit for bit; {moe_dispatch._jitter_noise.cache_info()}")
+
+
+def check_dots(model, params, ids, tgt) -> None:
+    """Remat "dots" against "full" on one batch: the loss and every
+    gradient leaf bit for bit (every kernel on the path is deterministic);
+    the memory each takes above the resting state."""
+    full = DMoETransformerLM(dataclasses.replace(model.cfg,
+                                                 remat_policy="full"),
+                             device="cuda")
+    out, extra_gb = {}, {}
+    for label, m in (("dots", model), ("full", full)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        (loss, _), grads = m.value_and_grad(params, ids, tgt)
+        torch.cuda.synchronize()
+        extra_gb[label] = (torch.cuda.max_memory_allocated() - base) / 1e9
+        out[label] = (loss, tree_leaves(grads))
+        del grads
+    same = [torch.equal(a, b) for a, b in zip(out["dots"][1], out["full"][1])]
+    print(f'remat "dots" vs "full", one batch: loss {float(out["dots"][0]):.6f}'
+          f' vs {float(out["full"][0]):.6f}; {sum(same)} of {len(same)} '
+          f"gradient leaves bit for bit; peak above resting state "
+          f'{extra_gb["dots"]:.2f} GB vs {extra_gb["full"]:.2f} GB')
+    assert torch.equal(out["dots"][0], out["full"][0])
+    assert all(same), [n for n, ok in zip(leaf_paths(params), same) if not ok]
 
 
 def check_fused_training(model, params, ids, tgt) -> None:
@@ -704,6 +928,87 @@ def check_flash_training(model, params) -> None:
             f"with one routing, flash and plain {name} differ: {cos}, {dev}"
 
 
+def _dispatch_form(label: str) -> str | None:
+    return "balanced routing" if "balance" in label else None
+
+
+def dispatch_path(plans, counters, results) -> dict:
+    """Phase 10, K4's path: ``dispatch_tokens_auto(use_kernel=True)`` on
+    every plan the flagship's MoE layers made on the paths above; each
+    output equals the plain version's bit for bit.  Returns the path's
+    kernel counts."""
+    reset_counts(counters)
+    with torch.no_grad():
+        outs = [td.dispatch_tokens_auto(x, _index_plan(tfs), use_kernel=True)
+                for _, _, x, tfs in plans]
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    assert launches == {**dict.fromkeys(counters, 0),
+                        "token_dispatch": len(plans)}, launches
+    fills = {}
+    for (label, layer, x, tfs), out in zip(plans, outs):
+        record(results, "token_dispatch", (*x.shape, *tfs.shape),
+               _dispatch_form(label),
+               max_abs_err=dispatch_err(f"{label} layer {layer}", out, x, tfs))
+        fills.setdefault(f"{label} {list(x.shape) + list(tfs.shape)}",
+                         []).append(round(float((tfs >= 0).float().mean()), 4))
+    print(f"dispatch_tokens_auto(use_kernel=True) on {len(plans)} plans: "
+          f"{launches['token_dispatch']} launches, every output bit for bit "
+          f"the plain version's; filled share of the slots per layer {fills}")
+    return launches
+
+
+def time_dispatch(plans, results) -> None:
+    """Timings of K4 on layer 0's plan of each path: kernel, plain
+    version, ``index_select`` yardstick, bound from the plan's own fill.
+    The card's time only (``queue_ahead``): a call is tens of µs, of the
+    order of the host's Python around it."""
+    for label, layer, x, tfs in plans:
+        if layer:
+            continue
+        plan = _index_plan(tfs)
+        idx = tfs.reshape(-1).clamp(min=0)
+        n, d = x.shape
+        slots, filled = tfs.numel(), int((tfs >= 0).sum())
+        nbytes = x.element_size() * d * (slots + filled) + 4 * slots
+        bound_ms, bound_by = bound(0, nbytes)
+        with torch.no_grad():
+            ms = median_ms(lambda: td.dispatch_tokens_kernel(x, plan),
+                           queue_ahead=True)
+            plain_ms = median_ms(
+                lambda: moe_dispatch.dispatch_tokens_indexed(x, plan),
+                queue_ahead=True)
+            yard_ms = median_ms(lambda: torch.index_select(x, 0, idx),
+                                queue_ahead=True)
+        shape = (n, d, *tfs.shape)
+        print(f"token_dispatch {label} {list(shape)} (filled "
+              f"{filled / slots:.4f}): {ms:.4f} ms "
+              f"({nbytes / ms / 1e6:.0f} GB/s), plain {plain_ms:.4f} ms, "
+              f"index_select {yard_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by})")
+        record(results, "token_dispatch", shape, _dispatch_form(label),
+               ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               library_ms=None, filled=filled / slots,
+               yardstick="torch.index_select(x, 0, idx.clamp(min=0)): the "
+                         "same rows gathered, empty slots not zeroed",
+               yardstick_ms=yard_ms)
+
+
+def time_jitter_noise() -> None:
+    """The router-jitter noise of one flagship-train layer drawn without
+    the cache (threefry in int64 torch ops): what each of a step's 8
+    routing calls (4 layers and their recompute) would cost if the noise
+    were not kept between calls."""
+    shape = (TRAIN_BATCH * FLAGSHIP_TRAIN["seq_len"],
+             FLAGSHIP_TRAIN["num_experts"])
+    key = prng.fold_in(prng.PRNGKey(moe_dispatch._JITTER_SEED, device="cuda"),
+                       0)
+    ms = median_ms(lambda: prng.uniform(key, shape, minval=0.9, maxval=1.1),
+                   reps=5, warmup=1)
+    print(f"jitter noise {list(shape)} drawn without the cache: {ms:.3f} ms "
+          f"a draw, {8 * ms:.1f} ms a step of 8 routing calls")
+
+
 def time_fused_ce(shape, gen, results) -> None:
     """Phase 8 for K1-K3 at one shape: kernel, plain version, cuBLAS
     yardstick, bound."""
@@ -812,7 +1117,8 @@ def main() -> int:
                 "flash_attn_bwd_dkv": fa.flash_attention_dkv,
                 "flash_attn_bwd_dq": fa.flash_attention_dq,
                 "fused_ce_fwd": fce.ce_forward, "fused_ce_dx": fce.ce_dx,
-                "fused_ce_dhead": fce.ce_dhead}
+                "fused_ce_dhead": fce.ce_dhead,
+                "token_dispatch": td.dispatch_tokens_kernel}
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}")
@@ -836,6 +1142,7 @@ def main() -> int:
         check_flash_bwd(shape, gen, results)
     for shape in [CE_TRAIN, CE_8K_TRAIN, (1024, 128, 2048), (384, 384, 4096)]:
         check_fused_ce(shape, gen, results)
+    check_dispatch_ragged(gen, results)  # the path's plans: phase 10
     torch.cuda.empty_cache()
 
     phase("small models: card against cpu")
@@ -843,13 +1150,19 @@ def main() -> int:
     small_train_reference(counters)
 
     phase("serving flagship-8k")
-    launches = {"flagship-8k (one generate)": serve_flagship(counters)}
+    plans = []  # (path, layer, x, token_for_slot) of the MoE dispatches
+    launches = {"flagship-8k (one generate)": serve_flagship(counters, plans)}
     torch.cuda.empty_cache()
 
     for name in TRAINING:
         phase(f"training {name}")
-        launches[f"{name} ({TRAIN_STEPS} steps)"] = train(name, counters)
+        n_steps, counts = train(name, counters, plans)
+        launches[f"{name} ({n_steps} steps)"] = counts
         torch.cuda.empty_cache()
+
+    phase("token dispatch on the flagship's plans")
+    launches["dispatch_tokens_auto (flagship plans)"] = dispatch_path(
+        plans, counters, results)
 
     phase("timings")
     time_attention(SERVE_ATTN, gen, results, train=False)
@@ -858,6 +1171,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     for shape in (CE_TRAIN, CE_8K_TRAIN):
         time_fused_ce(shape, gen, results)
+    time_dispatch(plans, results)
+    time_jitter_noise()
 
     kernels = []
     for name, (source, replaces, shape) in KERNELS.items():

@@ -10,20 +10,29 @@ kernels), per-layer remat and the train step with gradient accumulation.
 Parameters are an explicit tree of tensors with the JAX package's names,
 shapes and layouts (stacked layers with a leading ``n_layers`` dim, or a
 tuple of per-layer trees), so converted checkpoints (``convert.py``)
-compare leaf by leaf.  Sequence parallelism, remat policy ``"dots"``,
-router jitter and expert-choice gating are not ported yet; they raise
-``NotImplementedError`` naming the ROADMAP.md item that ports them.
+compare leaf by leaf.  Each layer passes its index to the MoE as the
+router-jitter salt.  Remat ``"full"`` keeps only each layer's input;
+``"dots"`` also keeps the outputs of the layer's products without batch
+dims (the projections and the gate), as JAX's
+``dots_with_no_batch_dims_saveable``.  Sequence parallelism is not ported
+yet; it raises ``NotImplementedError`` naming the ROADMAP.md item that
+ports it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 from typing import Any, Callable
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from learning_at_home_tpu_torch.device import resolve_device
 from learning_at_home_tpu_torch.initializers import lecun_normal, normal
@@ -46,6 +55,15 @@ Params = Any
 
 TRAINING_ITEM = ("ROADMAP.md, port queue item 2 (what remains of the pod-mode "
                  "train step)")
+# the products without batch dims: under remat "dots" their outputs are
+# saved and everything else in the layer is recomputed (batched products,
+# elementwise ops, routing, the custom kernels)
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,11 +139,7 @@ class DMoETransformerLM:
                 f"seq_parallel (ring attention) is not ported yet: "
                 f"{TRAINING_ITEM}"
             )
-        if config.remat and config.remat_policy != "full":
-            if config.remat_policy == "dots":
-                raise NotImplementedError(
-                    f"remat_policy='dots' is not ported yet: {TRAINING_ITEM}"
-                )
+        if config.remat and config.remat_policy not in ("full", "dots"):
             raise ValueError(
                 f"remat_policy must be 'full' or 'dots', got "
                 f"{config.remat_policy!r}"
@@ -195,15 +209,17 @@ class DMoETransformerLM:
             return _layer_slice(params["layers"], i)
         return params["layers"][i]
 
-    def _layer(self, lp, x, token_mask=None):
+    def _layer(self, lp, x, layer_idx, token_mask=None):
         x = x + causal_attention(
             lp, layer_norm(lp["ln1"], x), self.cfg.n_heads,
             impl=self.cfg.attn_impl,
         )
         b, s, d = x.shape
         moe_in = layer_norm(lp["ln2"], x).reshape(b * s, d)
+        # the layer index salts the router jitter: each layer draws its own
+        # noise, and remat's recompute draws the forward's
         moe_out, aux = self.moe(
-            lp["moe"], moe_in,
+            lp["moe"], moe_in, jitter_salt=layer_idx,
             token_mask=None if token_mask is None else token_mask.reshape(b * s),
         )
         return x + moe_out.reshape(b, s, d), aux
@@ -231,11 +247,15 @@ class DMoETransformerLM:
             lp = self._layer_params(params, i)
             if self.cfg.remat:
                 # "full": keep only the layer's input; the backward
-                # recomputes everything inside it
-                x, aux = checkpoint(self._layer, lp, x, token_mask,
-                                    use_reentrant=False)
+                # recomputes everything inside it.  "dots": keep the
+                # outputs of the products without batch dims too
+                extra = {} if self.cfg.remat_policy == "full" else dict(
+                    context_fn=functools.partial(
+                        create_selective_checkpoint_contexts, _save_dots))
+                x, aux = checkpoint(self._layer, lp, x, i, token_mask,
+                                    use_reentrant=False, **extra)
             else:
-                x, aux = self._layer(lp, x, token_mask)
+                x, aux = self._layer(lp, x, i, token_mask)
             aux_total = aux if aux_total is None else {
                 key: aux_total[key] + aux[key] for key in aux_total
             }
@@ -527,7 +547,7 @@ class DMoETransformerLM:
                 lp, attention_core(q, k, v, cfg.attn_impl)
             )
             moe_in = layer_norm(lp["ln2"], x).reshape(b * p, cfg.d_model)
-            moe_out, _ = self.moe(lp["moe"], moe_in)
+            moe_out, _ = self.moe(lp["moe"], moe_in, jitter_salt=i)
             x = x + moe_out.reshape(b, p, cfg.d_model)
             kc = torch.zeros(
                 (b, s_cache, cfg.n_heads, hd), dtype=k.dtype, device=self.device
@@ -556,7 +576,7 @@ class DMoETransformerLM:
                     lp, q, k_caches[i], v_caches[i], t
                 )
                 moe_in = layer_norm(lp["ln2"], x).reshape(b, cfg.d_model)
-                moe_out, _ = self.moe(lp["moe"], moe_in)
+                moe_out, _ = self.moe(lp["moe"], moe_in, jitter_salt=i)
                 x = x + moe_out.reshape(b, 1, cfg.d_model)
             x = layer_norm(params["ln_f"], x)
             tok = self._sample(

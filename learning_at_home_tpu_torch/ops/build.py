@@ -31,6 +31,7 @@ LIBRARIES = {
     "flash_attn_fwd": ("flash_attn_fwd.cu",),
     "flash_attn_bwd": ("flash_attn_bwd.cu",),
     "fused_ce": ("fused_ce.cu",),
+    "token_dispatch": ("token_dispatch.cu",),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

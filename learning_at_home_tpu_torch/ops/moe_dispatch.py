@@ -4,22 +4,23 @@ The PyTorch counterpart of ``learning_at_home_tpu/ops/moe_dispatch.py``,
 for the parts pod-mode serving and training need: both token-choice
 gating forms (the one-hot ``[n, E, C]`` plan and the compact index plan)
 with their dispatch and combine, the slot claims, the top-k by argmax
-passes and the load-balance loss.  The same inputs give the same slots,
+passes, the load-balance loss, router jitter (whose noise is JAX's
+threefry stream bit for bit, ``random.py``) and expert-choice gating
+with its dispatch and combine.  The same inputs give the same slots,
 weights and losses as the JAX functions of the same names, and autograd
 through them gives the JAX gradients.
-
-Router jitter and expert-choice gating are training-time routing and are
-not ported yet (ROADMAP.md, port queue item 2); the MoE layer refuses
-configurations that reach them.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+
+from learning_at_home_tpu_torch import random as prng
 
 
 class DispatchPlan(NamedTuple):
@@ -143,13 +144,55 @@ def _top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return w[..., :k], i[..., :k].to(torch.int32)
 
 
-def _topk_weights(gates: torch.Tensor, k: int, renormalize: bool):
-    top_w, top_i = _top_k(gates, k)
+def _topk_weights(gates: torch.Tensor, k: int, renormalize: bool,
+                  jitter: float = 0.0, jitter_salt=0):
+    """Top-k selection; with ``jitter`` the noisy gates choose the experts
+    and the clean gates give the weights, so the fixed noise pattern never
+    biases the output mixture."""
+    if jitter:
+        _, top_i = _top_k(router_jitter(gates, jitter, jitter_salt), k)
+        top_w = torch.gather(gates, -1, top_i.long())
+    else:
+        top_w, top_i = _top_k(gates, k)
     if renormalize:
         top_w = top_w / torch.clamp(
             top_w.sum(dim=-1, keepdim=True), min=torch.finfo(top_w.dtype).tiny
         )
     return top_w, top_i
+
+
+# the key whose fold with the call site's salt draws the jitter noise
+_JITTER_SEED = 0x5EED
+
+
+@functools.lru_cache(maxsize=16)
+def _jitter_noise(jitter: float, salt: int, shape: tuple[int, ...],
+                  dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """U(1 - jitter, 1 + jitter) of ``shape``: a pure function of its
+    arguments, kept for the next call with the same ones (each layer of a
+    train step draws the same noise in its forward and its remat
+    recompute, and again every step)."""
+    key = prng.fold_in(prng.PRNGKey(_JITTER_SEED, device=device), salt)
+    return prng.uniform(key, shape, dtype=dtype, minval=1.0 - jitter,
+                        maxval=1.0 + jitter)
+
+
+def router_jitter(gates: torch.Tensor, jitter: float,
+                  salt=0) -> torch.Tensor:
+    """Switch-Transformer-style multiplicative routing noise,
+    U(1-jitter, 1+jitter) per (row, expert), deterministic: the pattern is
+    ``jax.random.uniform`` under ``fold_in(PRNGKey(0x5EED), salt)``, bit
+    for bit.  It splits the near-ties of near-identical rows, and the
+    backward's recompute reproduces the same routing.  ``salt`` (an int or
+    an integer 0-d tensor, e.g. the layer index) decorrelates the pattern
+    across call sites."""
+    if not jitter:
+        return gates
+    if isinstance(salt, torch.Tensor):
+        salt = int(salt) & 0xFFFFFFFF  # JAX's cast of an int32 to uint32
+    noise = _jitter_noise(float(jitter), int(salt), tuple(gates.shape),
+                          gates.dtype, gates.device)
+    return gates * noise
 
 
 def _mask_fits(
@@ -167,18 +210,20 @@ def _mask_fits(
 
 def top_k_gating(
     logits: torch.Tensor, k: int, capacity: int, renormalize: bool = True,
+    jitter: float = 0.0, jitter_salt=0,
     token_mask: torch.Tensor | None = None,
 ) -> DispatchPlan:
     """Route each token to its top-k experts, bucketed to static capacity.
 
     logits [n, E] raw gate scores.  Tokens claim expert slots in token
     order; a choice whose expert is full is dropped (weight zero).
-    ``token_mask`` [n] bool: False marks padding, which is routed nowhere,
-    claims no capacity and is left out of the aux loss and the dropped
-    fraction."""
+    ``jitter`` > 0 chooses the experts from noisy gates
+    (:func:`router_jitter` with ``jitter_salt``).  ``token_mask`` [n]
+    bool: False marks padding, which is routed nowhere, claims no capacity
+    and is left out of the aux loss and the dropped fraction."""
     n, num_experts = logits.shape
     gates = torch.softmax(logits, dim=-1)
-    top_w, top_i = _topk_weights(gates, k, renormalize)
+    top_w, top_i = _topk_weights(gates, k, renormalize, jitter, jitter_salt)
     pos = _expert_positions(top_i, num_experts, token_mask)
     fits, n_routable = _mask_fits(pos < capacity, token_mask, n, k)
 
@@ -213,13 +258,14 @@ def combine_outputs(y: torch.Tensor, plan: DispatchPlan) -> torch.Tensor:
 
 def top_k_gating_indices(
     logits: torch.Tensor, k: int, capacity: int, renormalize: bool = True,
+    jitter: float = 0.0, jitter_salt=0,
     token_mask: torch.Tensor | None = None,
 ) -> IndexDispatchPlan:
     """Index-form routing with the semantics of :func:`top_k_gating`,
     without materialising [n, E, C] tensors."""
     n, num_experts = logits.shape
     gates = torch.softmax(logits, dim=-1)
-    top_w, top_i = _topk_weights(gates, k, renormalize)
+    top_w, top_i = _topk_weights(gates, k, renormalize, jitter, jitter_salt)
     pos = _expert_positions(top_i, num_experts, token_mask)
     fits, n_routable = _mask_fits(pos < capacity, token_mask, n, k)
 
@@ -278,3 +324,71 @@ def combine_outputs_indexed(
     e, c, d = y.shape
     picked = _gather_rows(y.reshape(e * c, d), plan.slot_for_token.clamp(min=0))
     return torch.einsum("nk,nkd->nd", plan.weights.to(y.dtype), picked)
+
+
+# ---- expert-choice routing (Zhou et al. 2022) ----
+
+
+class ExpertChoicePlan(NamedTuple):
+    """Expert-choice routing decision: each EXPERT picks its top-C tokens.
+    No slot is ever empty and no choice is dropped by capacity; a token
+    that no expert picks passes through the residual unchanged."""
+
+    token_for_slot: torch.Tensor  # [E, C] int32, never -1
+    weights: torch.Tensor  # [E, C] float: affinity of expert e for its c-th pick
+    uncovered_fraction: torch.Tensor  # [] fraction of tokens picked by no expert
+
+
+def expert_choice_gating(
+    logits: torch.Tensor, capacity: int,
+    token_mask: torch.Tensor | None = None,
+) -> ExpertChoicePlan:
+    """Each expert selects its top-``capacity`` tokens by gate affinity
+    (the token's softmax-over-experts mass on it); capacity is clamped to
+    the token count.  Ties go to the lower token index, as ``lax.top_k``
+    breaks them: a stable descending sort over the tokens, cut after C
+    (``torch.topk`` promises no tie order, and masked padding ties in
+    bulk).  ``token_mask`` [n] bool: padding sorts behind every real token
+    (affinity -1) and, if still picked, carries weight 0.  Selection
+    depends on the other tokens of the shard (see the JAX docstring)."""
+    n, _ = logits.shape
+    capacity = min(capacity, n)
+    aff = torch.softmax(logits, dim=-1).T  # [E, n]
+    if token_mask is not None:
+        aff = torch.where(token_mask[None, :], aff, torch.full_like(aff, -1.0))
+    top_w, top_i = torch.sort(aff, dim=-1, descending=True, stable=True)
+    top_w, top_i = top_w[:, :capacity], top_i[:, :capacity]
+    if token_mask is not None:
+        top_w = torch.clamp(top_w, min=0.0)  # picked padding: zero weight
+    covered = torch.bincount(top_i.reshape(-1), minlength=n) > 0
+    if token_mask is None:
+        uncovered = 1.0 - covered.sum().float() / n
+    else:
+        real = torch.clamp(token_mask.sum().float(), min=1.0)
+        uncovered = 1.0 - (covered & token_mask).sum().float() / real
+    return ExpertChoicePlan(top_i.to(torch.int32), top_w, uncovered)
+
+
+def dispatch_tokens_expert_choice(
+    x: torch.Tensor, plan: ExpertChoicePlan
+) -> torch.Tensor:
+    """[n, d] → [E, C, d]: every slot is a real token."""
+    e, c = plan.token_for_slot.shape
+    return _gather_rows(x, plan.token_for_slot.reshape(-1)).reshape(
+        e, c, x.shape[-1])
+
+
+def combine_outputs_expert_choice(
+    y: torch.Tensor, plan: ExpertChoicePlan, n_tokens: int
+) -> torch.Tensor:
+    """[E, C, d] → [n, d]: the affinity-weighted scatter-add over picks.
+    A token's picks are summed by the backward of the dispatch's row
+    gather (``embedding_dense_backward``): it sorts the slots by token and
+    sums each token's segment in a fixed order on the CPU and on CUDA, so
+    two runs give the same bits (``index_add_`` and ``index_put_`` add with
+    atomics on one device or the other); its own gradient is that gather."""
+    e, c, d = y.shape
+    w = plan.weights.reshape(-1, 1).to(y.dtype)
+    return torch.ops.aten.embedding_dense_backward(
+        w * y.reshape(e * c, d), plan.token_for_slot.reshape(-1).long(),
+        n_tokens, -1, False)

@@ -11,6 +11,8 @@ scalars return their input, so this module is that function without them:
 Parameters keep the JAX names and layouts: ``gate [d,E]``, ``w1 [E,d,f]``,
 ``b1 [E,f]``, ``w2 [E,f,d]``, ``b2 [E,d]``.  The expert FFN is a plain
 batched product (``torch.bmm``), as the JAX package leaves it to XLA.
+Routing is token-choice top-k (optionally with router jitter) or expert
+choice, as in the JAX layer.
 """
 
 from __future__ import annotations
@@ -22,20 +24,18 @@ from learning_at_home_tpu_torch.initializers import lecun_normal, normal
 from learning_at_home_tpu_torch.ops.moe_dispatch import (
     choose_dispatch_impl,
     combine_outputs,
+    combine_outputs_expert_choice,
     combine_outputs_indexed,
     compute_capacity,
     dispatch_tokens,
+    dispatch_tokens_expert_choice,
     dispatch_tokens_indexed,
+    expert_choice_gating,
     top_k_gating,
     top_k_gating_indices,
 )
 
 Params = dict[str, torch.Tensor]
-
-TRAINING_ROUTING = (
-    "is training-time routing, not ported yet (ROADMAP.md, port queue "
-    "item 2: the pod-mode train step); generate() turns it off"
-)
 
 
 class ShardedMixtureOfExperts:
@@ -95,24 +95,25 @@ class ShardedMixtureOfExperts:
         }
 
     def __call__(
-        self, params: Params, x: torch.Tensor,
+        self, params: Params, x: torch.Tensor, jitter_salt=0,
         token_mask: torch.Tensor | None = None,
     ) -> tuple[torch.Tensor, dict]:
-        """x [n, d] → (y [n, d], aux).  ``token_mask`` [n] bool: False marks
-        padding, which is routed nowhere and gets zero output."""
-        if self.router_jitter:
-            raise NotImplementedError(f"router_jitter {TRAINING_ROUTING}")
-        if self.gating == "expert_choice":
-            raise NotImplementedError(
-                f"expert_choice gating {TRAINING_ROUTING}"
-            )
+        """x [n, d] → (y [n, d], aux).  ``jitter_salt`` (an int or an
+        integer 0-d tensor, e.g. the layer index) is folded into the
+        router-jitter key so that each call site draws its own noise.
+        ``token_mask`` [n] bool: False marks padding, which is routed
+        nowhere and gets zero output."""
         capacity = compute_capacity(
             x.shape[0], self.num_experts, self.k, self.capacity_factor
         )
-        return self._local_forward(params, x, capacity, token_mask)
+        if self.gating == "expert_choice":
+            # each expert picks C of the shard's tokens: C <= n
+            capacity = min(capacity, x.shape[0])
+        return self._local_forward(params, x, jitter_salt, capacity,
+                                   token_mask)
 
     def _local_forward(
-        self, params: Params, x: torch.Tensor, capacity: int,
+        self, params: Params, x: torch.Tensor, jitter_salt, capacity: int,
         token_mask: torch.Tensor | None = None,
     ) -> tuple[torch.Tensor, dict]:
         compute = self.dtype
@@ -124,14 +125,19 @@ class ShardedMixtureOfExperts:
 
         # gate logits from compute-dtype operands, softmax in f32
         logits = (x.to(compute) @ params["gate"].to(compute)).float()
-        if impl == "gather":
+        if self.gating == "expert_choice":
+            plan = expert_choice_gating(logits, capacity, token_mask)
+            xe = dispatch_tokens_expert_choice(x.to(compute), plan)
+        elif impl == "gather":
             plan = top_k_gating_indices(
-                logits, self.k, capacity, token_mask=token_mask
+                logits, self.k, capacity, jitter=self.router_jitter,
+                jitter_salt=jitter_salt, token_mask=token_mask,
             )
             xe = dispatch_tokens_indexed(x.to(compute), plan)
         else:
             plan = top_k_gating(
-                logits, self.k, capacity, token_mask=token_mask
+                logits, self.k, capacity, jitter=self.router_jitter,
+                jitter_salt=jitter_salt, token_mask=token_mask,
             )
             xe = dispatch_tokens(x.to(compute), plan)  # [E, C, d]
 
@@ -143,7 +149,9 @@ class ShardedMixtureOfExperts:
         h = F.gelu(torch.bmm(xe, w1) + b1[:, None, :], approximate="tanh")
         ye = torch.bmm(h, w2) + b2[:, None, :]
 
-        if impl == "gather":
+        if self.gating == "expert_choice":
+            y = combine_outputs_expert_choice(ye, plan, x.shape[0]).to(x.dtype)
+        elif impl == "gather":
             y = combine_outputs_indexed(ye, plan).to(x.dtype)
         else:
             y = combine_outputs(ye, plan).to(x.dtype)
@@ -155,9 +163,16 @@ class ShardedMixtureOfExperts:
         else:
             v = token_mask.to(lse2.dtype)
             router_z = (lse2 * v).sum() / torch.clamp(v.sum(), min=1.0)
+        if self.gating == "expert_choice":
+            # balanced by construction: no balance auxiliary; the dropped
+            # fraction reports the tokens no expert picked
+            aux_loss = torch.zeros((), dtype=torch.float32, device=x.device)
+            dropped = plan.uncovered_fraction
+        else:
+            aux_loss, dropped = plan.aux_loss, plan.dropped_fraction
         aux = {
-            "aux_loss": plan.aux_loss,
+            "aux_loss": aux_loss,
             "router_z_loss": router_z,
-            "dropped_fraction": plan.dropped_fraction,
+            "dropped_fraction": dropped,
         }
         return y, aux

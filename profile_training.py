@@ -7,7 +7,11 @@ weights from a seed, fused CE, fused Adafactor 1e-3):
 - ``flagship-train``: the 256-expert DMoE-Transformer at seq_len 256 with
   bf16 params, remat "full" and the per-layer tuple layout, batch 176;
 - ``flagship-8k-train``: the same recipe at seq_len 8192, batch 4, where
-  the flash-attention kernels run forward and backward.
+  the flash-attention kernels run forward and backward;
+- ``flagship-train-balanced``, ``flagship-train-expert-choice`` and
+  ``flagship-train-dots``: ``flagship-train`` with router jitter 0.1 and
+  aux-loss weight 5e-2, with expert-choice gating, and with remat "dots"
+  (no balance steps here: the weights are the seed's).
 
 It takes two warm-up steps on one fixed batch, then traces ``--steps``
 more with ``torch.profiler``.  It prints, per step, the wall time, the

@@ -218,7 +218,24 @@ def test_moe_init_params_layout():
 @pytest.mark.parametrize("kw", [dict(router_jitter=0.1),
                                 dict(gating="expert_choice")])
 def test_training_routing_is_refused(kw):
-    moe = TorchMoE(hidden_dim=8, num_experts=4, dtype=torch.float32, **kw)
-    p = moe.init_params(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        moe(p, torch.zeros(4, 8))
+    """Training-time routing runs in the layer and gives the JAX layer's
+    output and aux scalars (both modes in depth: test_torch_routing.py);
+    only expert choice combined with jitter is refused, as in JAX."""
+    d, e, n = 8, 4, 16
+    rng = np.random.default_rng(3)
+    params = _moe_params(rng, d, e, 4 * d)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    jmoe = JaxMoE(make_mesh({"expert": 1}, devices=jax.devices()[:1]),
+                  hidden_dim=d, num_experts=e, dtype=jnp.float32, **kw)
+    jy, jaux = jax.jit(lambda p, x: jmoe(p, x, jitter_salt=1))(
+        {k: jnp.asarray(a) for k, a in params.items()}, jnp.asarray(x))
+    moe = TorchMoE(hidden_dim=d, num_experts=e, dtype=torch.float32, **kw)
+    ty, taux = moe({k: _t(a) for k, a in params.items()}, _t(x),
+                   jitter_salt=1)
+    np.testing.assert_allclose(ty.numpy(), _np(jy), atol=1e-5, rtol=1e-5)
+    for key in jaux:
+        np.testing.assert_allclose(float(taux[key]), float(jaux[key]),
+                                   atol=1e-6, rtol=1e-5)
+    with pytest.raises(ValueError, match="router_jitter"):
+        TorchMoE(hidden_dim=d, num_experts=e, gating="expert_choice",
+                 router_jitter=0.1)

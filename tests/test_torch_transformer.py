@@ -213,14 +213,23 @@ def test_unported_training_features_raise(over):
 @pytest.mark.parametrize("over", [dict(router_jitter=0.2),
                                   dict(gating="expert_choice")])
 def test_generate_decodes_with_eval_routing(pairs, over):
-    """Training-time routing is refused in apply but switched off for
-    generate, which then decodes as the clean config does."""
+    """Training-time routing runs in apply, where it gives the JAX
+    model's logits and aux scalars, and is switched off for generate,
+    which then decodes as the clean config does."""
     base = pairs["stacked"]
     model = DMoETransformerLM(dataclasses.replace(base.tcfg, **over),
                               device="cpu")
-    ids = torch.from_numpy(_ids(4, (2, 6)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.apply(base.tparams, ids)
+    jmodel = JaxLM(dataclasses.replace(base.jcfg, **over),
+                   make_mesh({"expert": 1}, devices=jax.devices()[:1]))
+    ids = torch.from_numpy(_ids(4, (2, 32)))
+    jlogits, jaux = jax.jit(jmodel.apply)(base.jparams, jnp.asarray(ids.numpy()))
+    tlogits, taux = model.apply(base.tparams, ids)
+    np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits),
+                               atol=1e-4, rtol=1e-4)
+    for key in jaux:
+        np.testing.assert_allclose(float(taux[key]), float(jaux[key]),
+                                   atol=1e-5, rtol=1e-4)
+    ids = ids[:, :6]
     want = base.tmodel.generate(base.tparams, ids, 4, use_cache=True)
     assert torch.equal(model.generate(base.tparams, ids, 4, use_cache=True),
                        want)
