@@ -12,12 +12,15 @@ Phases, each of which asserts (none catches its own failure):
 2. build    -- compiles every kernel library of
                ``learning_at_home_tpu_torch/csrc`` for sm_90a into
                ``build/kernels/`` (one nvcc each, all at once) and prints
-               ptxas's registers and spills.
+               ptxas's registers, static shared memory, spills and
+               warnings, and the backward kernels' dynamic shared memory.
 3. kernels  -- each kernel against its plain PyTorch version on the card,
-               at the main paths' shapes and at smaller ones, within the
-               stated tolerances; K4 (token dispatch) bit for bit on ragged
-               cases (f32 rows of d = 100, one token, every slot empty,
-               every slot full).
+               at the main paths' shapes and at smaller ones (the K5
+               backward also at S = 8193, one row past a tile), within the
+               stated tolerances; the K5 backward at [4, 8192, 8, 64]
+               launched twice must give the same bits; K4 (token dispatch)
+               bit for bit on ragged cases (f32 rows of d = 100, one
+               token, every slot empty, every slot full).
 4. small    -- a tiny f32 model on the card against the same model on the
                CPU (the CPU path is the one the tests hold against the JAX
                package): logits and greedy tokens; then one train step of
@@ -75,9 +78,9 @@ Phases, each of which asserts (none catches its own failure):
                attention forward; for K1-K3, the attention backward and
                K4, which no single call computes, a yardstick: the cuBLAS
                product ``x @ head`` of K1's shape, SDPA's backward of dq,
-               dk and dv together, and ``index_select`` of the same rows);
-               and the router-jitter noise of one layer drawn without its
-               cache.
+               dk and dv together, and ``index_select`` of the same rows),
+               each with its share of its bound (bound / time); and the
+               router-jitter noise of one layer drawn without its cache.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA card or
@@ -336,6 +339,14 @@ def check_flash_bwd(shape, gen, results) -> None:
     q, k, v, do = (randn_bf16(shape, gen) for _ in range(4))
     o, lse = fa.flash_attention_fwd(q, k, v)
     dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    if shape == TRAIN_ATTN:  # deterministic: a second launch, the same bits
+        again = fa.flash_attention_bwd(q, k, v, o, lse, do)
+        same = [torch.equal(_bits(a), _bits(b))
+                for a, b in zip((dq, dk, dv), again)]
+        del again
+        print(f"flash_attn_bwd {list(shape)}: dq, dk, dv of two launches "
+              f"bit for bit: {same}")
+        assert all(same), "the K5 backward is not deterministic"
     torch.cuda.synchronize()
     err_o = err_lse = 0.0
     for i in range(shape[0]):
@@ -985,10 +996,11 @@ def time_dispatch(plans, results) -> None:
               f"{filled / slots:.4f}): {ms:.4f} ms "
               f"({nbytes / ms / 1e6:.0f} GB/s), plain {plain_ms:.4f} ms, "
               f"index_select {yard_ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by})")
+              f"({bound_by}; {bound_ms / ms:.3f} of it)")
         record(results, "token_dispatch", shape, _dispatch_form(label),
                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-               library_ms=None, filled=filled / slots,
+               bound_share=bound_ms / ms, library_ms=None,
+               filled=filled / slots,
                yardstick="torch.index_select(x, 0, idx.clamp(min=0)): the "
                          "same rows gathered, empty slots not zeroed",
                yardstick_ms=yard_ms)
@@ -1035,9 +1047,11 @@ def time_fused_ce(shape, gen, results) -> None:
         bound_ms, bound_by = bound(flops, nbytes)
         print(f"{name} {list(shape)}: {ms:.4f} ms ({flops / ms / 1e9:.1f} "
               f"TFLOP/s), plain {plain_ms:.4f} ms, cuBLAS x@head "
-              f"{yard_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+              f"{yard_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+              f"{bound_ms / ms:.3f} of it)")
         record(results, name, shape, ms=ms, plain_ms=plain_ms,
-               bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+               bound_ms=bound_ms, bound_by=bound_by,
+               bound_share=bound_ms / ms, library_ms=None,
                yardstick="torch.matmul(x, head) bf16 (cuBLAS), K1's product",
                yardstick_ms=yard_ms)
 
@@ -1091,10 +1105,12 @@ def time_attention(shape, gen, results, train: bool) -> None:
                       "flash_attn_bwd_dq": 3}[name]
         lib = row["library_ms"] if row["library_ms"] is not None \
             else row["yardstick_ms"]
+        row["bound_share"] = row["bound_ms"] / row["ms"]
         print(f"{name} {list(shape)}: {row['ms']:.4f} ms "
               f"({n_products * product / row['ms'] / 1e9:.1f} TFLOP/s), plain "
               f"{row['plain_ms']:.4f} ms, sdpa {lib:.4f} ms, bound "
-              f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}; "
+              f"{row['bound_share']:.3f} of it)")
         form = "with lse" if train and name == "flash_attn_fwd" else None
         record(results, name, shape, form, **row)
     if train:
@@ -1129,16 +1145,21 @@ def main() -> int:
     print(f"built {sorted(build.LIBRARIES)} in {time.perf_counter() - t0:.1f} s")
     for name, report in build.build_reports.items():
         for line in report.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "warning",
+                                       "Performance")):
                 print(f"  {name}: {line.strip()}")
+    for kernel in ("dkv", "dq"):  # smem above is static; theirs is dynamic
+        _, threads, smem = fa.bwd_launch_geometry(kernel, *TRAIN_ATTN[:3])
+        print(f"  flash_attn_bwd {kernel}: {threads} threads, {smem} bytes "
+              "dynamic smem")
 
     phase("kernels against their plain versions")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     results = {}  # kernel name -> {(shape, form): numbers measured there}
     for shape in [SERVE_ATTN, (1, 1000, 8, 64), (3, 70, 2, 64), (1, 1, 1, 64)]:
         check_flash(shape, gen, results)
-    for shape in [TRAIN_ATTN, (1, 8192, 8, 64), (2, 4096, 8, 64),
-                  (1, 1000, 8, 64)]:
+    for shape in [TRAIN_ATTN, (1, 8192, 8, 64), (1, 8193, 8, 64),
+                  (2, 4096, 8, 64), (1, 1000, 8, 64)]:
         check_flash_bwd(shape, gen, results)
     for shape in [CE_TRAIN, CE_8K_TRAIN, (1024, 128, 2048), (384, 384, 4096)]:
         check_fused_ce(shape, gen, results)

@@ -1,6 +1,6 @@
-// Pieces shared by the flash-attention forward and backward kernels
-// (flash_attn_fwd.cu, flash_attn_bwd.cu): cp.async tile loads, the bf16
-// mma.sync m16n8k16 product and its fragment loads.
+// Pieces of the flash-attention forward kernel (flash_attn_fwd.cu):
+// cp.async tile loads, the bf16 mma.sync m16n8k16 product and its
+// fragment loads.  (The backward kernels use hopper_common.cuh.)
 //
 // Fragment layout of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A 16x16, row-major: a0 (row g, cols 2t..2t+1), a1 (row g+8, same cols),
@@ -8,8 +8,8 @@
 //   B 16x8, "col":      b0 (rows 2t..2t+1, col g), b1 (rows 2t+8..2t+9);
 //   C 16x8, f32:        c0, c1 (row g, cols 2t, 2t+1), c2, c3 (row g+8).
 // So a C tile of rows x 16 columns, rounded to bf16, is exactly the A
-// fragment of the next product over those 16 columns: the kernels keep
-// probabilities and their gradients in registers between two products.
+// fragment of the next product over those 16 columns: the forward keeps
+// its probabilities in registers between its two products.
 
 #pragma once
 
@@ -35,24 +35,12 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                "l"(gmem), "r"(src_bytes));
 }
 
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
-                                          bool valid) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int src_bytes = valid ? 4 : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(src_bytes));
-}
-
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
 __device__ __forceinline__ void cp_async_wait_all_but_one() {
   asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
 // rows [row0, row0 + 64) of one (batch, head) into a padded smem tile;

@@ -1,0 +1,295 @@
+// Hopper (sm_90a) primitives shared by the port's warp-specialised
+// kernels: tensor maps (host), mbarriers, TMA tile loads, wgmma descriptors
+// and instructions, accumulator-to-A packing and register rebalancing.
+//
+// Layout conventions.  Every tile is 64 rows of 64 bf16 (one 128-byte row
+// each), loaded by TMA with the 128-byte swizzle into a 1024-byte-aligned
+// 8 KB slot: row r sits at r * 128 bytes, its 16-byte chunk c at chunk
+// c ^ (r % 8).  wgmma reads such a tile two ways:
+//   K-major  (the tile's columns are the product's K): LBO unused, SBO =
+//            1024 bytes (8 rows); the k-th 16-column step starts 32 * k
+//            bytes further;
+//   MN-major (the tile's rows are K, its columns N; wgmma's "transpose"
+//            flag): SBO = 1024 bytes (8 K rows), LBO unused (64 columns are
+//            one swizzle atom); the k-th 16-row step starts 2048 * k bytes
+//            further.
+// wgmma m64nNk16's f32 accumulator gives thread (warp w, lane l) of the
+// warpgroup rows 16w + l/4 and 16w + l/4 + 8; d[4j + e] is column
+// 8j + 2(l%4) + (e&1) of the first row (e < 2) or the second (e >= 2) --
+// the mma.sync C layout, repeated over N/8 column blocks.  Its A-from-
+// registers fragment over 16 K columns is the mma.sync m16n8k16 A layout,
+// so an accumulator over 64 columns, rounded to bf16, is the A operand of
+// the next product over those columns (pack_a).
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace hopper {
+
+constexpr uint32_t kSwizzleAtom = 1024;  // 8 rows of 128 bytes
+
+// ---- host: tensor maps ----
+
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                   cuuint32_t, void*, const cuuint64_t*,
+                                   const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave,
+                                   CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                   CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point (no
+// -lcuda); null if the driver does not offer it
+inline EncodeTiledFn encode_tiled_fn() {
+  static EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &status);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
+#endif
+    return (err == cudaSuccess && status == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A tensor map of a bf16 [B, S, H, 64] tensor as 4-D (64, S, H, B) with
+// the given byte strides of S, H and B (multiples of 16), boxes of
+// (64, 64, 1, 1) rows, 128-byte swizzle; rows past S read as zeros.
+// Returns 0, or a positive CUresult, or -1 if the driver lacks the call.
+inline int encode_rows_map(CUtensorMap* map, const void* base, int S, int H,
+                           int B, int64_t ss, int64_t sh, int64_t sb) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return -1;
+  cuuint64_t dims[4] = {64, static_cast<cuuint64_t>(S),
+                        static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
+  cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss),
+                           static_cast<cuuint64_t>(sh),
+                           static_cast<cuuint64_t>(sb)};
+  cuuint32_t box[4] = {64, 64, 1, 1};
+  cuuint32_t elem[4] = {1, 1, 1, 1};
+  return static_cast<int>(fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
+}
+
+// ---- device: shared memory and mbarriers ----
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// raises the barrier's expected transaction bytes without arriving
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done;
+}
+
+// until the phase of parity `parity` has completed.  A phase that never
+// completes is a bug in the pipeline: after ~2^35 cycles (over 10 s) the
+// kernel traps, which the launch reports, instead of holding the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long start = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - start > (1ll << 35)) __trap();
+}
+
+// one (64, 64, 1, 1) box of a 4-D tensor map into smem; completes `bar`'s
+// transaction count by the box's 8192 bytes
+__device__ __forceinline__ void tma_load_rows(uint32_t dst,
+                                              const CUtensorMap* map,
+                                              uint32_t bar, int row, int h,
+                                              int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(row),
+      "r"(h), "r"(b)
+      : "memory");
+}
+
+// ---- device: register rebalancing between warpgroups ----
+
+template <int kRegs>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
+template <int kRegs>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
+// ---- device: wgmma ----
+
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// a [64, 64] tile whose columns are K, from its k-th 16-column step
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int k) {
+  return desc_sw128(tile + 32 * k, 16, kSwizzleAtom);
+}
+
+// a [64, 64] tile whose rows are K, from its k-th 16-row step
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int k) {
+  return desc_sw128(tile + 2048 * k, 8192, kSwizzleAtom);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending)
+               : "memory");
+}
+
+// keeps the compiler from moving reads of an in-flight wgmma's registers
+// (accumulators, A fragments) across a wait, or reusing them before it
+__device__ __forceinline__ void fence_operand(float& x) {
+  asm volatile("" : "+f"(x)::"memory");
+}
+__device__ __forceinline__ void fence_operand(uint32_t& x) {
+  asm volatile("" : "+r"(x)::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) fence_operand(x[i]);
+}
+template <int N, int M>
+__device__ __forceinline__ void fence_operands(uint32_t (&x)[N][M]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < M; ++j) fence_operand(x[i][j]);
+}
+
+#define HOPPER_ACC32(d)                                                     \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),      \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),      \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),      \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
+      "+f"(d[31])
+
+#define HOPPER_D32                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+
+// d[64 x 64] (+)= A B, A and B in shared memory (descriptors); the sum is
+// kept when `accumulate` is nonzero
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a,
+                                                   uint64_t b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_D32
+      ", %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : HOPPER_ACC32(d)
+      : "l"(a), "l"(b), "r"(accumulate), "n"(kTransB));
+}
+
+// d[64 x 64] += A B, A in registers (this thread's fragment of 16 K
+// columns), B in shared memory
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : HOPPER_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
+        "n"(kTransB));
+}
+
+#undef HOPPER_ACC32
+#undef HOPPER_D32
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// a [64 x 64] f32 accumulator, rounded to bf16, as the A fragments of the
+// four 16-column K steps of the next product
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4],
+                                       const float (&d)[32]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    a[k][0] = pack_bf16(d[8 * k + 0], d[8 * k + 1]);
+    a[k][1] = pack_bf16(d[8 * k + 2], d[8 * k + 3]);
+    a[k][2] = pack_bf16(d[8 * k + 4], d[8 * k + 5]);
+    a[k][3] = pack_bf16(d[8 * k + 6], d[8 * k + 7]);
+  }
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+}  // namespace hopper

@@ -33,6 +33,13 @@ throughput bounds them, not memory.  The plain form instead writes
 ``B*H*S*S*4`` bytes of f32 scores (1.1 GB at that shape, 8.6 GB at the
 long-context training shape [4, 8192, 8, 64]); the kernels keep scores,
 probabilities and their gradients in registers.  See the sources.
+
+The backward kernels are warp-specialised Hopper kernels: a producer warp
+feeds [64, 64] tiles to two consumer warpgroups by TMA, and every product
+is a ``wgmma``.  What they need from the caller is computed here, so the
+CPU tests reach it: :func:`bwd_tensor_map` (the TMA tensor map of one
+input: dims, byte strides, box) and :func:`bwd_launch_geometry` (grid,
+threads, dynamic shared memory).
 """
 
 from __future__ import annotations
@@ -43,6 +50,14 @@ import math
 import torch
 
 HEAD_DIM = 64  # the one head dim the kernels are specialised for
+# csrc/flash_attn_bwd.cu's launch geometry: a block owns BWD_ROWS keys (dkv)
+# or queries (dq), 64 per consumer warpgroup; every TMA tile is BWD_TILE
+# rows of one 128-byte swizzle row each; the streamed tiles go through a
+# ring of BWD_STAGES slots; two consumer warpgroups and one producer
+BWD_ROWS, BWD_TILE, BWD_STAGES = 128, 64, 4
+BWD_THREADS = 3 * 128
+_TMA_STRIDE_ALIGN = 16  # bytes: every TMA global stride and base address
+_TMA_STRIDE_LIMIT = 1 << 40
 
 
 # ---- plain versions ----
@@ -184,28 +199,93 @@ def _check_stats(q: torch.Tensor, *stats: torch.Tensor) -> None:
 
 
 def _strides(*tensors):
-    return [st for t in tensors for st in t.stride()[:3]]
+    """(batch, seq, head) element strides of each tensor, as int64s."""
+    return [ctypes.c_int64(st) for t in tensors for st in t.stride()[:3]]
 
 
-def _launch(library: str, symbol: str, q: torch.Tensor, pointers,
-            strides) -> None:
-    """Call ``symbol`` of kernel library ``library`` (built at first use):
-    the pointers, B, S, H, the (batch, seq, head) strides, the scale and
-    the current stream.  Raises if the launch was refused."""
+def bwd_tensor_map(t: torch.Tensor):
+    """The TMA tensor map the backward kernels read a [B,S,H,hd] bf16
+    input through: ``(dims, byte_strides, box)``, dims innermost first
+    ``(hd, S, H, B)``, the byte strides of S, H and B, and the box of one
+    [BWD_TILE, hd] tile.  Raises ValueError for a layout TMA cannot take: a
+    head dim that is not contiguous, a stride that is not a multiple of 16
+    bytes (or not below 2^40), a base address that is not 16-byte
+    aligned."""
+    b, s, h, hd = t.shape
+    size = t.element_size()
+    strides = tuple(st * size for st in (t.stride(1), t.stride(2), t.stride(0)))
+    if (t.stride(3) != 1
+            or any(st % _TMA_STRIDE_ALIGN or not 0 <= st < _TMA_STRIDE_LIMIT
+                   for st in strides)
+            or t.data_ptr() % _TMA_STRIDE_ALIGN):
+        raise ValueError(
+            f"TMA needs a contiguous head dim, (seq, head, batch) strides "
+            f"that are multiples of {_TMA_STRIDE_ALIGN} bytes and a "
+            f"{_TMA_STRIDE_ALIGN}-byte aligned base; got element strides "
+            f"{t.stride()} of {size}-byte elements at {t.data_ptr():#x}")
+    return (hd, s, h, b), strides, (hd, BWD_TILE, 1, 1)
+
+
+def bwd_launch_geometry(kernel: str, b: int, s: int, h: int):
+    """``(grid, threads, smem_bytes)`` of backward kernel ``kernel`` ("dkv"
+    or "dq") on [b, s, h, 64] inputs: one block per BWD_ROWS rows of each
+    (batch, head); dynamic shared memory for the owned rows' two operands,
+    the ring of streamed tile pairs (and, for dkv, each stage's 64 lse and
+    di floats), 2 * BWD_STAGES + 1 mbarriers and 1 KB to align the tiles
+    to the 128-byte swizzle's 1024-byte atom."""
+    if kernel not in ("dkv", "dq"):
+        raise ValueError(f"no backward kernel {kernel!r}")
+    tile = BWD_TILE * HEAD_DIM * 2
+    stats = 2 * BWD_TILE * 4 if kernel == "dkv" else 0
+    smem = (2 * (BWD_ROWS // BWD_TILE) * tile
+            + BWD_STAGES * (2 * tile + stats)
+            + (2 * BWD_STAGES + 1) * 8 + 1024)
+    return (-(-s // BWD_ROWS), h, b), BWD_THREADS, smem
+
+
+def _launch(library: str, symbol: str, q: torch.Tensor, args) -> None:
+    """Call ``symbol`` of kernel library ``library`` (built at first use)
+    with ``args`` (ctypes values), the scale and the current stream.
+    Raises if the launch was refused."""
     from learning_at_home_tpu_torch.ops.build import load_library
 
     fn = getattr(load_library(library), symbol)
     if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = ([p] * len(pointers) + [ctypes.c_int] * 3
-                       + [ctypes.c_int64] * len(strides) + [ctypes.c_float, p])
+        fn.argtypes = [type(a) for a in args] + [ctypes.c_float,
+                                                 ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    b, s, h, hd = q.shape
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(*pointers, b, s, h, *strides, 1.0 / math.sqrt(hd), stream)
+        err = fn(*args, 1.0 / math.sqrt(q.shape[-1]), stream)
+    if err < 0:
+        raise RuntimeError(
+            f"{symbol}: a TMA tensor map could not be encoded ("
+            + ("the driver lacks cuTensorMapEncodeTiled)" if err == -1
+               else f"CUresult {-1000 - err})"))
     if err:
         raise RuntimeError(f"{symbol} launch failed: CUDA error {err}")
+
+
+def _pointers(*tensors):
+    return [ctypes.c_void_p(None if t is None else t.data_ptr())
+            for t in tensors]
+
+
+def _shape_args(q: torch.Tensor):
+    return [ctypes.c_int(n) for n in q.shape[:3]]
+
+
+def _bwd_args(kernel: str, q, k, v, do, lse, di, *outs):
+    """The backward entry points' arguments before the scale: the
+    pointers, B, S, H, the inputs' TMA byte strides, the outputs' element
+    strides, grid x and shared-memory bytes."""
+    b, s, h, _ = q.shape
+    in_strides = (ctypes.c_int64 * 12)(
+        *(st for t in (q, k, v, do) for st in bwd_tensor_map(t)[1]))
+    grid, _, smem = bwd_launch_geometry(kernel, b, s, h)
+    return (_pointers(q, k, v, do, lse, di, *outs) + _shape_args(q)
+            + [ctypes.cast(in_strides, ctypes.POINTER(ctypes.c_int64))]
+            + _strides(*outs) + [ctypes.c_int(grid[0]), ctypes.c_int(smem)])
 
 
 def _on_cpu(q: torch.Tensor, name: str) -> bool:
@@ -232,9 +312,8 @@ def flash_attention_fwd(q, k, v, with_lse: bool = True):
            if with_lse else None)
     if o.numel():
         _launch("flash_attn_fwd", "lah_flash_attn_fwd_bf16", q,
-                [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 None if lse is None else lse.data_ptr()],
-                _strides(q, k, v, o))
+                _pointers(q, k, v, o, lse) + _shape_args(q)
+                + _strides(q, k, v, o))
         flash_attention.launches += 1
     return o, lse
 
@@ -251,8 +330,7 @@ def flash_attention_dkv(q, k, v, do, lse, di):
     dk, dv = torch.empty_like(q), torch.empty_like(q)
     if q.numel():
         _launch("flash_attn_bwd", "lah_flash_attn_bwd_dkv_bf16", q,
-                [t.data_ptr() for t in (q, k, v, do, lse, di, dk, dv)],
-                _strides(q, k, v, do, dk, dv))
+                _bwd_args("dkv", q, k, v, do, lse, di, dk, dv))
         flash_attention_dkv.launches += 1
     return dk, dv
 
@@ -268,8 +346,7 @@ def flash_attention_dq(q, k, v, do, lse, di):
     dq = torch.empty_like(q)
     if q.numel():
         _launch("flash_attn_bwd", "lah_flash_attn_bwd_dq_bf16", q,
-                [t.data_ptr() for t in (q, k, v, do, lse, di, dq)],
-                _strides(q, k, v, do, dq))
+                _bwd_args("dq", q, k, v, do, lse, di, dq))
         flash_attention_dq.launches += 1
     return dq
 

@@ -58,7 +58,8 @@ def _grads(q, k, v, do):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 1024, 8, 64), (1, 1000, 4, 64),
-                                   (3, 70, 2, 64), (1, 65, 1, 64)])
+                                   (3, 70, 2, 64), (1, 65, 1, 64),
+                                   (1, 8193, 2, 64)])
 def test_gradients_match_plain_on_card(card, shape):
     q, k, v, do = (_randn(shape, card) for _ in range(4))
     before = (fa.flash_attention.launches, fa.flash_attention_dkv.launches,
@@ -74,6 +75,40 @@ def test_gradients_match_plain_on_card(card, shape):
     for name, g, w in zip(("dq", "dk", "dv"), grads, want):
         assert g.dtype == torch.bfloat16 and g.shape == shape
         _assert_grad_close(g, w, name)
+
+
+@pytest.mark.cuda
+def test_gradients_of_one_token_on_card(card):
+    """S = 1: every tile but the first row lies past S.  The one
+    probability is 1, so dv = do exactly, and ds = dp - di is the
+    difference of two f32 sums of the same 64 products: dq and dk are zero
+    up to their summation order."""
+    shape = (2, 1, 3, 64)
+    q, k, v, do = (_randn(shape, card) for _ in range(4))
+    out, (dq, dk, dv) = _grads(q, k, v, do)
+    torch.cuda.synchronize()
+    assert torch.equal(out, v)
+    _, lse = fa.flash_attention_fwd(q, k, v)
+    want = fa.attention_bwd_reference(q.float(), k.float(), v.float(),
+                                      out.float(), lse, do.float())
+    torch.testing.assert_close(dv, do, atol=0, rtol=0)
+    for name, g, w in (("dq", dq, want[0]), ("dk", dk, want[1])):
+        assert torch.isfinite(g).all(), name
+        assert float((g.float() - w.float()).abs().max()) <= 1e-4, name
+
+
+@pytest.mark.cuda
+def test_backward_is_deterministic_on_card(card):
+    """Two launches give the same bits: each output element is summed by
+    one thread in a fixed order, with no atomics."""
+    shape = (2, 4096, 8, 64)
+    q, k, v, do = (_randn(shape, card) for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    first = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    second = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16)), name
 
 
 @pytest.mark.cuda
