@@ -12,12 +12,14 @@ Phases, each of which asserts (none catches its own failure):
 2. build    -- compiles every kernel library of
                ``learning_at_home_tpu_torch/csrc`` for sm_90a into
                ``build/kernels/`` (one nvcc each, all at once) and prints
-               ptxas's registers, static shared memory, spills and
-               warnings, and the backward kernels' dynamic shared memory.
+               ptxas's registers, static shared memory, spills, warnings
+               and notes (C7512: wgmma serialised) per kernel, and the
+               warp-specialised kernels' dynamic shared memory.
 3. kernels  -- each kernel against its plain PyTorch version on the card,
-               at the main paths' shapes and at smaller ones (the K5
-               backward also at S = 8193, one row past a tile), within the
-               stated tolerances; the K5 backward at [4, 8192, 8, 64]
+               at the main paths' shapes and at smaller ones (K5 also at
+               S = 8193, one row past a tile; K1 also at a ragged n and
+               V = 64 * odd), within the stated tolerances; the K5
+               backward at [4, 8192, 8, 64]
                launched twice must give the same bits; K4 (token dispatch)
                bit for bit on ragged cases (f32 rows of d = 100, one
                token, every slot empty, every slot full).
@@ -85,10 +87,15 @@ Phases, each of which asserts (none catches its own failure):
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA card or
 without the repository's package beside it.
+
+``python3 chip_smoke.py --kernels-only [flash|ce]`` runs phases 1-3 and
+phase 11's timings of K5 and K1-K3 (or of one family; no model path, no
+kernels line): a kernel change's quick check and its times.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import dataclasses
 import json
@@ -186,10 +193,11 @@ KERNELS = {
                            TRAIN_ATTN),
     "flash_attn_bwd_dq": ("flash_attn_bwd.cu", LIBRARY_FLASH + ":1287",
                           TRAIN_ATTN),
-    **{name: ("fused_ce.cu", f"learning_at_home_tpu/ops/fused_ce.py:{line}",
+    **{name: (source, f"learning_at_home_tpu/ops/fused_ce.py:{line}",
               CE_TRAIN)
-       for name, line in (("fused_ce_fwd", 58), ("fused_ce_dx", 96),
-                          ("fused_ce_dhead", 124))},
+       for name, source, line in (("fused_ce_fwd", "fused_ce_fwd.cu", 58),
+                                  ("fused_ce_dx", "fused_ce.cu", 96),
+                                  ("fused_ce_dhead", "fused_ce.cu", 124))},
     "token_dispatch": ("token_dispatch.cu",
                        "learning_at_home_tpu/ops/pallas_dispatch.py:44",
                        DISPATCH_TRAIN),
@@ -1121,7 +1129,72 @@ def time_attention(shape, gen, results, train: bool) -> None:
               f"5-product bound {pair_ms:.4f} ms, sdpa backward {yard_ms:.4f} ms")
 
 
+def report_build() -> None:
+    """ptxas's lines of each kernel this process compiled (registers,
+    spills, warnings and notes such as C7512, "wgmma serialized"), and the
+    dynamic shared memory of the warp-specialised kernels at the paths'
+    shapes."""
+    for name, report in build.build_reports.items():
+        for line in report.splitlines():
+            if any(w in line for w in ("entry function", "registers", "spill",
+                                       "warning", "Performance", "C7512")):
+                print(f"  {name}: {line.strip()}")
+    _, threads, smem = fa.fwd_launch_geometry(*TRAIN_ATTN[:3])
+    print(f"  flash_attn_fwd: {threads} threads, {smem} bytes dynamic smem")
+    for kernel in ("dkv", "dq"):
+        _, threads, smem = fa.bwd_launch_geometry(kernel, *TRAIN_ATTN[:3])
+        print(f"  flash_attn_bwd {kernel}: {threads} threads, {smem} bytes "
+              "dynamic smem")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for n, d, _ in (CE_TRAIN, CE_8K_TRAIN):
+        grid, threads, smem = fce.ce_fwd_launch_geometry(n, d)
+        print(f"  fused_ce_fwd [n={n}, D={d}]: {grid[0]} blocks of {threads} "
+              f"threads ({grid[0] / sms:.2f} waves of {sms} SMs), {smem} "
+              "bytes dynamic smem")
+
+
+# kernel families: their libraries (for --kernels-only)
+FAMILIES = {"flash": ("flash_attn_fwd", "flash_attn_bwd"),
+            "ce": ("fused_ce_fwd", "fused_ce")}
+
+
+def check_kernels(gen, results, family: str = "all") -> None:
+    """Phase 3 (of one family's kernels)."""
+    if family in ("all", "flash"):
+        for shape in [SERVE_ATTN, (1, 1000, 8, 64), (3, 70, 2, 64),
+                      (1, 1, 1, 64), (1, 65, 2, 64), (1, 8193, 8, 64)]:
+            check_flash(shape, gen, results)
+        for shape in [TRAIN_ATTN, (1, 8192, 8, 64), (1, 8193, 8, 64),
+                      (2, 4096, 8, 64), (1, 1000, 8, 64)]:
+            check_flash_bwd(shape, gen, results)
+    if family in ("all", "ce"):
+        for shape in [CE_TRAIN, CE_8K_TRAIN, (1024, 128, 2048),
+                      (384, 384, 4096), (1000, 256, 1088)]:
+            check_fused_ce(shape, gen, results)
+    if family == "all":
+        check_dispatch_ragged(gen, results)  # the path's plans: phase 10
+    torch.cuda.empty_cache()
+
+
+def time_kernels(gen, results, family: str = "all") -> None:
+    """Phase 11's timings of K5 and K1-K3 (of one family)."""
+    if family in ("all", "flash"):
+        time_attention(SERVE_ATTN, gen, results, train=False)
+        torch.cuda.empty_cache()
+        time_attention(TRAIN_ATTN, gen, results, train=True)
+        torch.cuda.empty_cache()
+    if family in ("all", "ce"):
+        for shape in (CE_TRAIN, CE_8K_TRAIN):
+            time_fused_ce(shape, gen, results)
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernels-only", nargs="?", const="all",
+                    choices=["all", *FAMILIES],
+                    help="phases 1-3 and the kernel timings of phase 11, of "
+                         "all kernels or of one family")
+    args = ap.parse_args()
     phase("device")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1141,30 +1214,20 @@ def main() -> int:
 
     phase("build")
     t0 = time.perf_counter()
-    build.build_all()
-    print(f"built {sorted(build.LIBRARIES)} in {time.perf_counter() - t0:.1f} s")
-    for name, report in build.build_reports.items():
-        for line in report.splitlines():
-            if any(w in line for w in ("registers", "spill", "warning",
-                                       "Performance")):
-                print(f"  {name}: {line.strip()}")
-    for kernel in ("dkv", "dq"):  # smem above is static; theirs is dynamic
-        _, threads, smem = fa.bwd_launch_geometry(kernel, *TRAIN_ATTN[:3])
-        print(f"  flash_attn_bwd {kernel}: {threads} threads, {smem} bytes "
-              "dynamic smem")
+    libraries = FAMILIES.get(args.kernels_only, sorted(build.LIBRARIES))
+    build.build_all(libraries)
+    print(f"built {sorted(libraries)} in {time.perf_counter() - t0:.1f} s")
+    report_build()
 
     phase("kernels against their plain versions")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     results = {}  # kernel name -> {(shape, form): numbers measured there}
-    for shape in [SERVE_ATTN, (1, 1000, 8, 64), (3, 70, 2, 64), (1, 1, 1, 64)]:
-        check_flash(shape, gen, results)
-    for shape in [TRAIN_ATTN, (1, 8192, 8, 64), (1, 8193, 8, 64),
-                  (2, 4096, 8, 64), (1, 1000, 8, 64)]:
-        check_flash_bwd(shape, gen, results)
-    for shape in [CE_TRAIN, CE_8K_TRAIN, (1024, 128, 2048), (384, 384, 4096)]:
-        check_fused_ce(shape, gen, results)
-    check_dispatch_ragged(gen, results)  # the path's plans: phase 10
-    torch.cuda.empty_cache()
+    check_kernels(gen, results, args.kernels_only or "all")
+    if args.kernels_only:
+        phase("timings")
+        time_kernels(gen, results, args.kernels_only)
+        print(card)
+        return 0
 
     phase("small models: card against cpu")
     small_reference()
@@ -1186,12 +1249,7 @@ def main() -> int:
         plans, counters, results)
 
     phase("timings")
-    time_attention(SERVE_ATTN, gen, results, train=False)
-    torch.cuda.empty_cache()
-    time_attention(TRAIN_ATTN, gen, results, train=True)
-    torch.cuda.empty_cache()
-    for shape in (CE_TRAIN, CE_8K_TRAIN):
-        time_fused_ce(shape, gen, results)
+    time_kernels(gen, results)
     time_dispatch(plans, results)
     time_jitter_noise()
 

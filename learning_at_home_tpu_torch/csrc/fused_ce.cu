@@ -1,26 +1,21 @@
-// Fused softmax cross-entropy for Hopper (sm_90a): forward (K1), dx (K2)
-// and dhead (K3), bf16 operands, f32 statistics and accumulators.
+// Fused softmax cross-entropy backward for Hopper (sm_90a): dx (K2) and
+// dhead (K3), bf16 operands, f32 statistics and accumulators.  The forward
+// (K1) is fused_ce_fwd.cu.
 //
-// Replaces: learning_at_home_tpu/ops/fused_ce.py, the three Pallas TPU
-// kernels _fwd_kernel (:58, pallas_call :211), _dx_kernel (:96,
-// pallas_call :244) and _dhead_kernel (:124, pallas_call :254).  Like
-// them, no [n, V] logits tile ever reaches device memory: each block
-// recomputes its logits tiles in registers from x, the head and (in the
-// backward) the saved row log-sum-exp.
+// Replaces: learning_at_home_tpu/ops/fused_ce.py, the Pallas TPU kernels
+// _dx_kernel (:96, pallas_call :244) and _dhead_kernel (:124, pallas_call
+// :254).  Like them, no [n, V] logits tile ever reaches device memory:
+// each block recomputes its logits tiles in registers from x, the head
+// and the forward's row log-sum-exp.
 //
 // Layout.  x is [n, D] with D contiguous; the head [D, V] is passed as its
 // transpose w = head^T [V, D] with D contiguous (the tied head is embed.T,
 // so w is the embedding table itself).  logits[r, v] = x[r, :] . w[v, :].
 //
-// One template serves all three kernels.  A block owns a "fixed" tile of
-// 64 rows of one operand, kept in shared memory, and streams 64-row tiles
-// of the other operand through a cp.async double buffer:
+// One template serves both kernels.  A block owns a "fixed" tile of 64
+// rows of one operand, kept in shared memory, and streams 64-row tiles of
+// the other operand through a cp.async double buffer:
 //
-//   K1 (fwd):   fixed = 64 rows of x, streamed = vocab tiles of w.  Per
-//               tile: S = x_tile . w_tile^T, then each thread folds its
-//               own columns into a running (max, sum-exp, target logit)
-//               per row; quads and the two column-half warps merge at
-//               the end.  Writes ce[n] and lse[n] only.
 //   K2 (dx):    fixed = x rows, streamed = vocab tiles.  Per tile: S, then
 //               dl = (exp(S - lse) - onehot) * dce in f32, rounded to bf16
 //               into shared memory, then acc[64, D] += dl . w_tile.
@@ -38,13 +33,11 @@
 // D across blocks.
 //
 // What bounds them on the H100: at n = 45056, D = 512, V = 32768 the
-// products are 1.51 TFLOP (K1) and 3.02 TFLOP (K2, K3) against ~80 MB of
-// operands, so tensor-core throughput, not memory, bounds all three
-// (1.53 / 3.06 / 3.06 ms at 989 TFLOP/s).  The design keeps every product
-// on the tensor cores (mma.sync m16n8k16, bf16 operands, f32
-// accumulators) and never writes logits.  Known levers left for later:
-// wgmma and TMA, 128-row fixed tiles for K1 (the 64-row tile reads w from
-// L2 64 times per 4.2 MFLOP), and a deeper pipeline.
+// products are 3.02 TFLOP each against ~80 MB of operands, so tensor-core
+// throughput, not memory, bounds both (3.06 ms at 989 TFLOP/s).  The
+// design keeps every product on the tensor cores (mma.sync m16n8k16, bf16
+// operands, f32 accumulators) and never writes logits.  Known levers left
+// for later: wgmma and TMA (as in K1) and a deeper pipeline.
 //
 // Numerics.  dl is rounded to bf16 before the second product (the TPU
 // kernel multiplies it in f32): relative error 2^-9 per term, so dx and
@@ -70,7 +63,7 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kPad = 8;
 constexpr int kDlStride = kTile + kPad;
 
-enum Mode { kFwd = 0, kDx = 1, kDhead = 2 };
+enum Mode { kDx, kDhead };
 
 template <int D>
 struct Layout {
@@ -181,7 +174,6 @@ __global__ void __launch_bounds__(kThreads, 1)
                     const int* __restrict__ tgt,
                     const float* __restrict__ lse_in,
                     const float* __restrict__ dce_in,
-                    float* __restrict__ ce_out, float* __restrict__ lse_out,
                     bf16* __restrict__ out, int64_t ld_out) {
   using L = Layout<D>;
   constexpr int kStride = L::kStride;
@@ -190,7 +182,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   bf16* sT = sF + L::kTileElems;            // two buffers
   bf16* sDL = sT + 2 * L::kTileElems;       // [64][kDlStride]
   float* sStats = reinterpret_cast<float*>(sDL + kTile * kDlStride);
-  // K3: per streamed row, double-buffered; K1: the cross-warp merge
+  // K3: per streamed row, double-buffered
   float* sLse = sStats;                     // [2][64]
   float* sDce = sStats + 2 * kTile;         // [2][64]
   int* sTgt = reinterpret_cast<int*>(sStats + 4 * kTile);  // [2][64]
@@ -204,9 +196,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int wn = warp >> 2; // 32-column half of the S tile
   const int f0 = blockIdx.x * kTile;
   const int n_tiles = (n_streamed + kTile - 1) / kTile;
-  // rows of x live on the fixed side for K1/K2, on the streamed side for K3
+  // rows of x live on the fixed side for K2, on the streamed side for K3
   const int n_rows = kMode == kDhead ? n_streamed : n_fixed;
-  const int vocab = kMode == kDhead ? n_fixed : n_streamed;
 
   load_tile<D>(sF, fixed, ld_fixed, f0, n_fixed, tid);
   load_tile<D>(sT, streamed, ld_streamed, 0, n_streamed, tid);
@@ -223,31 +214,22 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int r = 0; r < 2; ++r) {
       if (fr[r] < n_rows) {
         row_tgt[r] = __ldg(tgt + fr[r]);
-        if (kMode == kDx) {
-          row_lse[r] = __ldg(lse_in + fr[r]);
-          row_dce[r] = __ldg(dce_in + fr[r]);
-        }
+        row_lse[r] = __ldg(lse_in + fr[r]);
+        row_dce[r] = __ldg(dce_in + fr[r]);
       }
     }
   }
 
-  // K1: running max, sum of exp and target logit over this thread's columns
-  float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.f, 0.f};
-  float t_run[2] = {0.f, 0.f};
-
-  // K2/K3: acc[64, D/8] of this warp's columns
+  // acc[64, D/8] of this warp's columns
   constexpr int kNT = D / 64;  // n8 tiles per warp
   const int col0 = warp * (D / 8);
-  float acc[kMode == kFwd ? 1 : 4][kMode == kFwd ? 1 : kNT][4];
-  if (kMode != kFwd) {
+  float acc[4][kNT][4];
 #pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
+  for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
-      for (int nt = 0; nt < kNT; ++nt)
+    for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-  }
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
 
   for (int j = 0; j < n_tiles; ++j) {
     const int buf = j & 1;
@@ -288,144 +270,73 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
 
-    if (kMode == kFwd) {
-      // ---- online max / sum-exp / target logit, this thread's columns ----
+    // ---- dl = (exp(S - lse) - onehot) * dce -> bf16 tile [fixed][streamed]
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb) {
+      const int tc = wn * 32 + nb * 8 + 2 * q;  // streamed index in tile
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        float mx = m_run[r];
+        const int fi = wm * 16 + g + 8 * r;  // fixed index in tile
+        float dl[2];
 #pragma unroll
-        for (int nb = 0; nb < 4; ++nb)
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const int v = t0 + wn * 32 + nb * 8 + 2 * q + c;
-            float x = s[nb][2 * r + c];
-            if (v >= vocab)
-              x = -INFINITY;  // a ragged last tile: no such column
-            else if (v == row_tgt[r])
-              t_run[r] += x;  // a target outside [0, V) picks nothing
-            s[nb][2 * r + c] = x;
-            mx = fmaxf(mx, x);
+        for (int c = 0; c < 2; ++c) {
+          float lse, dce;
+          int is_target;
+          if (kMode == kDx) {  // fixed = row, streamed = vocab
+            lse = row_lse[r];
+            dce = row_dce[r];
+            is_target = (t0 + tc + c) == row_tgt[r];
+          } else {  // fixed = vocab, streamed = row
+            const int buf_row = buf * kTile + tc + c;
+            lse = sLse[buf_row];
+            dce = sDce[buf_row];
+            is_target = (f0 + fi) == sTgt[buf_row];
           }
-        float sum = 0.f;
-#pragma unroll
-        for (int nb = 0; nb < 4; ++nb)
-#pragma unroll
-          for (int c = 0; c < 2; ++c) sum += __expf(s[nb][2 * r + c] - mx);
-        l_run[r] = l_run[r] * __expf(m_run[r] - mx) + sum;
-        m_run[r] = mx;
-      }
-    } else {
-      // ---- dl = (exp(S - lse) - onehot) * dce -> bf16 tile [fixed][streamed]
-#pragma unroll
-      for (int nb = 0; nb < 4; ++nb) {
-        const int tc = wn * 32 + nb * 8 + 2 * q;  // streamed index in tile
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int fi = wm * 16 + g + 8 * r;  // fixed index in tile
-          float dl[2];
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            float lse, dce;
-            int is_target;
-            if (kMode == kDx) {  // fixed = row, streamed = vocab
-              lse = row_lse[r];
-              dce = row_dce[r];
-              is_target = (t0 + tc + c) == row_tgt[r];
-            } else {  // fixed = vocab, streamed = row
-              const int buf_row = buf * kTile + tc + c;
-              lse = sLse[buf_row];
-              dce = sDce[buf_row];
-              is_target = (f0 + fi) == sTgt[buf_row];
-            }
-            const float p = __expf(s[nb][2 * r + c] - lse);
-            dl[c] = (p - (is_target ? 1.f : 0.f)) * dce;
-          }
-          *reinterpret_cast<uint32_t*>(sDL + fi * kDlStride + tc) =
-              pack_bf16(dl[0], dl[1]);
+          const float p = __expf(s[nb][2 * r + c] - lse);
+          dl[c] = (p - (is_target ? 1.f : 0.f)) * dce;
         }
+        *reinterpret_cast<uint32_t*>(sDL + fi * kDlStride + tc) =
+            pack_bf16(dl[0], dl[1]);
       }
-      __syncthreads();  // the dl tile is complete
+    }
+    __syncthreads();  // the dl tile is complete
 
-      // ---- acc[64 x D/8 of this warp] += dl[64 x 64] . tile[64 x D] ----
+    // ---- acc[64 x D/8 of this warp] += dl[64 x 64] . tile[64 x D] ----
 #pragma unroll
-      for (int ks = 0; ks < kTile / 16; ++ks) {
-        uint32_t a[4][4];
+    for (int ks = 0; ks < kTile / 16; ++ks) {
+      uint32_t a[4][4];
 #pragma unroll
-        for (int mt = 0; mt < 4; ++mt)
-          ldmatrix_x4(a[mt], sDL + (mt * 16 + (lane & 15)) * kDlStride +
-                                 ks * 16 + (lane >> 4) * 8);
+      for (int mt = 0; mt < 4; ++mt)
+        ldmatrix_x4(a[mt], sDL + (mt * 16 + (lane & 15)) * kDlStride +
+                               ks * 16 + (lane >> 4) * 8);
 #pragma unroll
-        for (int np = 0; np < kNT / 2; ++np) {
-          uint32_t b[4];
-          ldmatrix_x4_trans(
-              b, tile + (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                            kStride +
-                     col0 + np * 16 + (lane >> 4) * 8);
+      for (int np = 0; np < kNT / 2; ++np) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(
+            b, tile + (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                          kStride +
+                   col0 + np * 16 + (lane >> 4) * 8);
 #pragma unroll
-          for (int mt = 0; mt < 4; ++mt) {
-            mma_bf16_16816(acc[mt][2 * np], a[mt], b[0], b[1]);
-            mma_bf16_16816(acc[mt][2 * np + 1], a[mt], b[2], b[3]);
-          }
+        for (int mt = 0; mt < 4; ++mt) {
+          mma_bf16_16816(acc[mt][2 * np], a[mt], b[0], b[1]);
+          mma_bf16_16816(acc[mt][2 * np + 1], a[mt], b[2], b[3]);
         }
       }
     }
     __syncthreads();  // buffer buf and the dl tile are reused next
   }
 
-  if (kMode == kFwd) {
-    // merge the four threads of a quad (same rows, other columns) ...
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
+      const int row = f0 + mt * 16 + g + 8 * r;
+      if (row >= n_fixed) continue;
+      bf16* dst = out + static_cast<int64_t>(row) * ld_out + col0 + 2 * q;
 #pragma unroll
-      for (int off = 1; off <= 2; off <<= 1) {
-        const float om = __shfl_xor_sync(0xffffffffu, m_run[r], off);
-        const float ol = __shfl_xor_sync(0xffffffffu, l_run[r], off);
-        const float ot = __shfl_xor_sync(0xffffffffu, t_run[r], off);
-        const float nm = fmaxf(m_run[r], om);
-        l_run[r] = l_run[r] * __expf(m_run[r] - nm) + ol * __expf(om - nm);
-        m_run[r] = nm;
-        t_run[r] += ot;
-      }
-    }
-    // ... then the two warps that hold the two column halves of a row
-    float* merge = sStats;  // [64][3]
-    if (wn == 1 && q == 0) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int fi = wm * 16 + g + 8 * r;
-        merge[fi * 3 + 0] = m_run[r];
-        merge[fi * 3 + 1] = l_run[r];
-        merge[fi * 3 + 2] = t_run[r];
-      }
-    }
-    __syncthreads();
-    if (wn == 0 && q == 0) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int fi = wm * 16 + g + 8 * r;
-        if (fr[r] >= n_rows) continue;
-        const float om = merge[fi * 3 + 0];
-        const float nm = fmaxf(m_run[r], om);
-        const float l =
-            l_run[r] * __expf(m_run[r] - nm) + merge[fi * 3 + 1] * __expf(om - nm);
-        const float lse = nm + logf(l);
-        lse_out[fr[r]] = lse;
-        ce_out[fr[r]] = lse - (t_run[r] + merge[fi * 3 + 2]);
-      }
-    }
-  } else {
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int row = f0 + mt * 16 + g + 8 * r;
-        if (row >= n_fixed) continue;
-        bf16* dst = out + static_cast<int64_t>(row) * ld_out + col0 + 2 * q;
-#pragma unroll
-        for (int nt = 0; nt < kNT; ++nt)
-          *reinterpret_cast<__nv_bfloat162*>(dst + nt * 8) =
-              __floats2bfloat162_rn(acc[mt][nt][2 * r], acc[mt][nt][2 * r + 1]);
-      }
+      for (int nt = 0; nt < kNT; ++nt)
+        *reinterpret_cast<__nv_bfloat162*>(dst + nt * 8) =
+            __floats2bfloat162_rn(acc[mt][nt][2 * r], acc[mt][nt][2 * r + 1]);
     }
   }
 }
@@ -434,8 +345,7 @@ template <int D, int kMode>
 int launch(const void* fixed, int64_t ld_fixed, int n_fixed,
            const void* streamed, int64_t ld_streamed, int n_streamed,
            const int* tgt, const float* lse_in, const float* dce_in,
-           float* ce_out, float* lse_out, void* out, int64_t ld_out,
-           void* stream) {
+           void* out, int64_t ld_out, void* stream) {
   auto kernel = fused_ce_kernel<D, kMode>;
   const size_t smem = Layout<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
@@ -446,7 +356,7 @@ int launch(const void* fixed, int64_t ld_fixed, int n_fixed,
   kernel<<<blocks, kThreads, smem, reinterpret_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(fixed), ld_fixed, n_fixed,
       static_cast<const bf16*>(streamed), ld_streamed, n_streamed, tgt, lse_in,
-      dce_in, ce_out, lse_out, static_cast<bf16*>(out), ld_out);
+      dce_in, static_cast<bf16*>(out), ld_out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -454,13 +364,12 @@ template <int kMode>
 int launch_d(int D, const void* fixed, int64_t ld_fixed, int n_fixed,
              const void* streamed, int64_t ld_streamed, int n_streamed,
              const int* tgt, const float* lse_in, const float* dce_in,
-             float* ce_out, float* lse_out, void* out, int64_t ld_out,
-             void* stream) {
+             void* out, int64_t ld_out, void* stream) {
 #define LAH_FUSED_CE_CASE(DD)                                                 \
   case DD:                                                                    \
     return launch<DD, kMode>(fixed, ld_fixed, n_fixed, streamed, ld_streamed, \
-                             n_streamed, tgt, lse_in, dce_in, ce_out,         \
-                             lse_out, out, ld_out, stream);
+                             n_streamed, tgt, lse_in, dce_in, out, ld_out,   \
+                             stream);
   switch (D) {
     LAH_FUSED_CE_CASE(128)
     LAH_FUSED_CE_CASE(256)
@@ -478,16 +387,7 @@ int launch_d(int D, const void* fixed, int64_t ld_fixed, int n_fixed,
 // returns a CUDA error code (0 on success).  x is [n, D] and w = head^T is
 // [V, D], both bf16 with D contiguous, row strides ldx / ldw in elements
 // (multiples of 8), 16-byte aligned; D is 128, 256, 384 or 512.  targets
-// are int32, lse / dce / ce f32, all [n] and contiguous.
-
-// K1: ce[n], lse[n]
-extern "C" int lah_fused_ce_fwd_bf16(const void* x, int64_t ldx, const void* w,
-                                     int64_t ldw, const int* targets,
-                                     float* ce, float* lse, int n, int V,
-                                     int D, void* stream) {
-  return launch_d<kFwd>(D, x, ldx, n, w, ldw, V, targets, nullptr, nullptr,
-                        ce, lse, nullptr, 0, stream);
-}
+// are int32, lse / dce f32, all [n] and contiguous.
 
 // K2: dx[n, D] (bf16, row stride lddx)
 extern "C" int lah_fused_ce_dx_bf16(const void* x, int64_t ldx, const void* w,
@@ -495,8 +395,8 @@ extern "C" int lah_fused_ce_dx_bf16(const void* x, int64_t ldx, const void* w,
                                     const float* lse, const float* dce,
                                     void* dx, int64_t lddx, int n, int V,
                                     int D, void* stream) {
-  return launch_d<kDx>(D, x, ldx, n, w, ldw, V, targets, lse, dce, nullptr,
-                       nullptr, dx, lddx, stream);
+  return launch_d<kDx>(D, x, ldx, n, w, ldw, V, targets, lse, dce, dx, lddx,
+                       stream);
 }
 
 // K3: dw[V, D] = dhead^T (bf16, row stride lddw)
@@ -506,6 +406,6 @@ extern "C" int lah_fused_ce_dhead_bf16(const void* x, int64_t ldx,
                                        const float* dce, void* dw,
                                        int64_t lddw, int n, int V, int D,
                                        void* stream) {
-  return launch_d<kDhead>(D, w, ldw, V, x, ldx, n, targets, lse, dce, nullptr,
-                          nullptr, dw, lddw, stream);
+  return launch_d<kDhead>(D, w, ldw, V, x, ldx, n, targets, lse, dce, dw,
+                          lddw, stream);
 }

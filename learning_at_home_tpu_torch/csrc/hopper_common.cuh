@@ -18,8 +18,10 @@
 // 8j + 2(l%4) + (e&1) of the first row (e < 2) or the second (e >= 2) --
 // the mma.sync C layout, repeated over N/8 column blocks.  Its A-from-
 // registers fragment over 16 K columns is the mma.sync m16n8k16 A layout,
-// so an accumulator over 64 columns, rounded to bf16, is the A operand of
-// the next product over those columns (pack_a).
+// so an accumulator over N columns, rounded to bf16, is the A operand of
+// the next product over those columns (pack_a).  Two 64-row tiles loaded
+// back to back make one 128-row tile of the same layout: the B operand of
+// an N = 128 product read K-major, or 128 K rows read MN-major.
 
 #pragma once
 
@@ -78,6 +80,26 @@ inline int encode_rows_map(CUtensorMap* map, const void* base, int S, int H,
   cuuint32_t elem[4] = {1, 1, 1, 1};
   return static_cast<int>(fn(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
+}
+
+// A tensor map of a row-major bf16 [rows, cols] matrix with the given
+// row stride in bytes (a multiple of 16) as 2-D (cols, rows), boxes of 64
+// columns by `box_rows` rows (at most 256), 128-byte swizzle; rows past
+// `rows` read as zeros.  Same return codes as encode_rows_map.
+inline int encode_matrix_map(CUtensorMap* map, const void* base, int64_t rows,
+                             int64_t cols, int64_t row_stride, int box_rows) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return -1;
+  cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                        static_cast<cuuint64_t>(rows)};
+  cuuint64_t strides[1] = {static_cast<cuuint64_t>(row_stride)};
+  cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  cuuint32_t elem[2] = {1, 1};
+  return static_cast<int>(fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
@@ -153,6 +175,18 @@ __device__ __forceinline__ void tma_load_rows(uint32_t dst,
       "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(row),
       "r"(h), "r"(b)
+      : "memory");
+}
+
+// one (64, box_rows) box of a 2-D tensor map into smem at (col, row);
+// completes `bar`'s transaction count by the box's bytes
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row)
       : "memory");
 }
 
@@ -265,6 +299,39 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
         "n"(kTransB));
 }
 
+#define HOPPER_ACC64(d)                                                     \
+  HOPPER_ACC32(d), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),      \
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),      \
+      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),      \
+      "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),      \
+      "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),      \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),      \
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+#define HOPPER_D64                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63}"
+
+// d[64 x 128] (+)= A B, A and B in shared memory (B: a 128-row tile read
+// K-major, or 128 columns read MN-major); the sum is kept when
+// `accumulate` is nonzero
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
+                                                    uint64_t a, uint64_t b,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_D64
+      ", %64, %65, p, 1, 1, 0, %67;\n}\n"
+      : HOPPER_ACC64(d)
+      : "l"(a), "l"(b), "r"(accumulate), "n"(kTransB));
+}
+
+#undef HOPPER_ACC64
+#undef HOPPER_D64
 #undef HOPPER_ACC32
 #undef HOPPER_D32
 
@@ -273,12 +340,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// a [64 x 64] f32 accumulator, rounded to bf16, as the A fragments of the
-// four 16-column K steps of the next product
-__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4],
-                                       const float (&d)[32]) {
+// a [64 x N] f32 accumulator, rounded to bf16, as the A fragments of the
+// N/16 16-column K steps of the next product
+template <int K>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[K][4],
+                                       const float (&d)[8 * K]) {
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
+  for (int k = 0; k < K; ++k) {
     a[k][0] = pack_bf16(d[8 * k + 0], d[8 * k + 1]);
     a[k][1] = pack_bf16(d[8 * k + 2], d[8 * k + 3]);
     a[k][2] = pack_bf16(d[8 * k + 4], d[8 * k + 5]);

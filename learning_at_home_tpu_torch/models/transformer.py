@@ -28,12 +28,14 @@ from typing import Any, Callable
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
     create_selective_checkpoint_contexts,
 )
 
+from learning_at_home_tpu_torch import random as prng
 from learning_at_home_tpu_torch.device import resolve_device
 from learning_at_home_tpu_torch.initializers import lecun_normal, normal
 from learning_at_home_tpu_torch.models.trunk import (
@@ -53,6 +55,9 @@ from learning_at_home_tpu_torch.tree import tree_leaves, tree_map, tree_unflatte
 
 Params = Any
 
+# the prefix of the profiler ranges the model opens: each layer's
+# attention and MoE, the loss, the backward and the optimizer update
+PROFILE_RANGE = "dmoe/"
 TRAINING_ITEM = ("ROADMAP.md, port queue item 2 (what remains of the pod-mode "
                  "train step)")
 # the products without batch dims: under remat "dots" their outputs are
@@ -210,18 +215,23 @@ class DMoETransformerLM:
         return params["layers"][i]
 
     def _layer(self, lp, x, layer_idx, token_mask=None):
-        x = x + causal_attention(
-            lp, layer_norm(lp["ln1"], x), self.cfg.n_heads,
-            impl=self.cfg.attn_impl,
-        )
+        # profiler ranges (PROFILE_RANGE): profile_training.py attributes
+        # device time to them
+        with record_function(f"{PROFILE_RANGE}layer{layer_idx}/attention"):
+            x = x + causal_attention(
+                lp, layer_norm(lp["ln1"], x), self.cfg.n_heads,
+                impl=self.cfg.attn_impl,
+            )
         b, s, d = x.shape
-        moe_in = layer_norm(lp["ln2"], x).reshape(b * s, d)
-        # the layer index salts the router jitter: each layer draws its own
-        # noise, and remat's recompute draws the forward's
-        moe_out, aux = self.moe(
-            lp["moe"], moe_in, jitter_salt=layer_idx,
-            token_mask=None if token_mask is None else token_mask.reshape(b * s),
-        )
+        with record_function(f"{PROFILE_RANGE}layer{layer_idx}/moe"):
+            moe_in = layer_norm(lp["ln2"], x).reshape(b * s, d)
+            # the layer index salts the router jitter: each layer draws its
+            # own noise, and remat's recompute draws the forward's
+            moe_out, aux = self.moe(
+                lp["moe"], moe_in, jitter_salt=layer_idx,
+                token_mask=(None if token_mask is None
+                            else token_mask.reshape(b * s)),
+            )
         return x + moe_out.reshape(b, s, d), aux
 
     def _embed(self, params: Params, token_ids: torch.Tensor,
@@ -315,21 +325,23 @@ class DMoETransformerLM:
         checkpointed chunk.  ``ce_impl="fused"`` keeps logits out of
         memory altogether when the kernels' preconditions hold."""
         x, aux = self._hidden(params, token_ids)
-        head = self._head(params)
-        n = x.shape[0] * x.shape[1]
-        flat_x = x.reshape(n, x.shape[-1])
-        flat_t = targets.reshape(n)
+        with record_function(f"{PROFILE_RANGE}loss"):
+            head = self._head(params)
+            n = x.shape[0] * x.shape[1]
+            flat_x = x.reshape(n, x.shape[-1])
+            flat_t = targets.reshape(n)
 
-        ce = self._fused_ce_or_none(head, flat_x, flat_t, n)
-        if ce is None:
-            chunk = min(self.cfg.ce_chunk, n)
-            ce_sum = torch.zeros((), dtype=torch.float32, device=x.device)
-            for start in range(0, n, chunk):
-                ce_sum = ce_sum + checkpoint(
-                    self._chunk_ce_sum, flat_x[start: start + chunk], head,
-                    flat_t[start: start + chunk], use_reentrant=False,
-                )
-            ce = ce_sum / n
+            ce = self._fused_ce_or_none(head, flat_x, flat_t, n)
+            if ce is None:
+                chunk = min(self.cfg.ce_chunk, n)
+                ce_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+                for start in range(0, n, chunk):
+                    ce_sum = ce_sum + checkpoint(
+                        self._chunk_ce_sum, flat_x[start: start + chunk],
+                        head, flat_t[start: start + chunk],
+                        use_reentrant=False,
+                    )
+                ce = ce_sum / n
         loss = (
             ce
             + self.cfg.aux_loss_weight * aux["aux_loss"]
@@ -346,10 +358,11 @@ class DMoETransformerLM:
         with torch.enable_grad():
             live = tree_map(lambda t: t.detach().requires_grad_(True), params)
             loss, metrics = self.loss_fn(live, token_ids, targets)
-            grads = torch.autograd.grad(
-                loss, tree_leaves(live), allow_unused=True,
-                materialize_grads=True,
-            )
+            with record_function(f"{PROFILE_RANGE}backward"):
+                grads = torch.autograd.grad(
+                    loss, tree_leaves(live), allow_unused=True,
+                    materialize_grads=True,
+                )
         metrics = {key: val.detach() for key, val in metrics.items()}
         return (loss.detach(), metrics), tree_unflatten(params, grads)
 
@@ -385,7 +398,8 @@ class DMoETransformerLM:
             token_ids, targets = token_ids.to(self.device), targets.to(self.device)
             (loss, metrics), grads = self.value_and_grad(params, token_ids,
                                                          targets)
-            params, opt_state = apply_fn(params, grads, opt_state)
+            with record_function(f"{PROFILE_RANGE}optimizer"):
+                params, opt_state = apply_fn(params, grads, opt_state)
             return params, opt_state, loss, metrics
 
         def accum_step(params, opt_state, token_ids, targets):
@@ -413,7 +427,8 @@ class DMoETransformerLM:
             # stay f32: the fused optimizer consumes f32 grads directly; the
             # optax-contract path casts to the param dtype itself
             grads = tree_map(lambda g: g.mul_(inv), gsum)
-            params, opt_state = apply_fn(params, grads, opt_state)
+            with record_function(f"{PROFILE_RANGE}optimizer"):
+                params, opt_state = apply_fn(params, grads, opt_state)
             metrics = {key: val * inv for key, val in msum.items()}
             return params, opt_state, lsum * inv, metrics
 
@@ -453,7 +468,7 @@ class DMoETransformerLM:
         prompt_ids: torch.Tensor,
         max_new_tokens: int,
         temperature: float = 0.0,
-        generator: torch.Generator | None = None,
+        rng: torch.Tensor | None = None,
         use_cache: bool = False,
     ) -> torch.Tensor:
         """Greedy (or temperature-sampled) autoregressive decoding.
@@ -467,9 +482,11 @@ class DMoETransformerLM:
         the B live tokens (see the JAX docstring for when the two agree).
 
         Greedy decoding matches the JAX package token for token.
-        ``temperature > 0`` samples with ``generator`` (required), whose
-        stream is not JAX's threefry stream: sampled tokens are not
-        expected to match the JAX package's.
+        ``temperature > 0`` samples under ``rng`` (required; a key of
+        :func:`learning_at_home_tpu_torch.random.PRNGKey`) as the JAX
+        package does: the key is split before every new token and the
+        token drawn with ``categorical(sub, logits / temperature)``, so the
+        same seed and params give the JAX package's tokens.
         """
         b, p = prompt_ids.shape
         s = self.cfg.seq_len
@@ -486,29 +503,31 @@ class DMoETransformerLM:
             )
         if temperature < 0:
             raise ValueError(f"temperature must be >= 0, got {temperature}")
-        if temperature > 0 and generator is None:
-            raise ValueError("temperature > 0 requires a torch.Generator")
+        if temperature > 0 and rng is None:
+            raise ValueError("temperature > 0 requires an rng key")
         if max_new_tokens == 0:
             return prompt_ids
         model = self.decode_model()
         decode = model._generate_cached if use_cache else model._generate_full
         return decode(
             params, prompt_ids.to(model.device), max_new_tokens,
-            float(temperature), generator,
+            float(temperature), rng,
         )
 
     @staticmethod
     def _sample(logits: torch.Tensor, temperature: float,
-                generator: torch.Generator | None) -> torch.Tensor:
-        """[B, V] f32 logits → [B] ids: argmax (ties to the lower index)
-        or a draw from softmax(logits / temperature)."""
+                rng: torch.Tensor | None):
+        """[B, V] f32 logits → ([B] ids, the key of the next draw): argmax
+        (ties to the lower index), or at ``temperature > 0``
+        ``categorical(sub, logits / temperature)`` with ``rng, sub =
+        split(rng)``, the JAX package's draw."""
         if temperature > 0:
-            probs = torch.softmax(logits / temperature, dim=-1)
-            return torch.multinomial(probs, 1, generator=generator)[:, 0]
-        return torch.argmax(logits, dim=-1)
+            rng, sub = prng.split(rng)
+            return prng.categorical(sub, logits / temperature), rng
+        return torch.argmax(logits, dim=-1), rng
 
     def _generate_full(self, params, prompt_ids, max_new_tokens,
-                       temperature, generator) -> torch.Tensor:
+                       temperature, rng) -> torch.Tensor:
         """Re-forward decoding: every step runs the full masked forward
         over the fixed-length buffer."""
         b, p = prompt_ids.shape
@@ -521,12 +540,12 @@ class DMoETransformerLM:
             # for expert capacity
             valid = (positions[None, :] <= t).expand(b, s)
             logits, _ = self.apply(params, buf, token_mask=valid)
-            nxt = self._sample(logits[:, t], temperature, generator)
+            nxt, rng = self._sample(logits[:, t], temperature, rng)
             buf[:, t + 1] = nxt.to(buf.dtype)
         return buf[:, : p + max_new_tokens]
 
     def _generate_cached(self, params, prompt_ids, max_new_tokens,
-                         temperature, generator) -> torch.Tensor:
+                         temperature, rng) -> torch.Tensor:
         """KV-cache decoding: prefill the caches on the prompt, then one
         position per step.  The caches are updated in place (the JAX
         version rebuilds them functionally; the values are the same)."""
@@ -558,8 +577,8 @@ class DMoETransformerLM:
             k_caches.append(kc)
             v_caches.append(vc)
         x_last = layer_norm(params["ln_f"], x[:, -1:])
-        tok = self._sample(
-            self._logits(x_last, head)[:, 0], temperature, generator
+        tok, rng = self._sample(
+            self._logits(x_last, head)[:, 0], temperature, rng
         )
         out = [tok]
 
@@ -579,8 +598,8 @@ class DMoETransformerLM:
                 moe_out, _ = self.moe(lp["moe"], moe_in, jitter_salt=i)
                 x = x + moe_out.reshape(b, 1, cfg.d_model)
             x = layer_norm(params["ln_f"], x)
-            tok = self._sample(
-                self._logits(x, head)[:, 0], temperature, generator
+            tok, rng = self._sample(
+                self._logits(x, head)[:, 0], temperature, rng
             )
             out.append(tok)
         new = torch.stack(out, dim=1).to(prompt_ids.dtype)

@@ -30,6 +30,7 @@ DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 LIBRARIES = {
     "flash_attn_fwd": ("flash_attn_fwd.cu",),
     "flash_attn_bwd": ("flash_attn_bwd.cu",),
+    "fused_ce_fwd": ("fused_ce_fwd.cu",),
     "fused_ce": ("fused_ce.cu",),
     "token_dispatch": ("token_dispatch.cu",),
 }

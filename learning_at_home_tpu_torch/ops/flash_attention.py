@@ -34,11 +34,12 @@ throughput bounds them, not memory.  The plain form instead writes
 long-context training shape [4, 8192, 8, 64]); the kernels keep scores,
 probabilities and their gradients in registers.  See the sources.
 
-The backward kernels are warp-specialised Hopper kernels: a producer warp
-feeds [64, 64] tiles to two consumer warpgroups by TMA, and every product
-is a ``wgmma``.  What they need from the caller is computed here, so the
-CPU tests reach it: :func:`bwd_tensor_map` (the TMA tensor map of one
-input: dims, byte strides, box) and :func:`bwd_launch_geometry` (grid,
+All three kernels are warp-specialised Hopper kernels: a producer thread
+feeds 128-byte-swizzled tiles to two consumer warpgroups of 64 rows each
+by TMA, and every product is a ``wgmma``.  What they need from the caller
+is computed here, so the CPU tests reach it: :func:`tensor_map` (the TMA
+tensor map of one input: dims, byte strides, box),
+:func:`fwd_launch_geometry` and :func:`bwd_launch_geometry` (grid,
 threads, dynamic shared memory).
 """
 
@@ -50,11 +51,17 @@ import math
 import torch
 
 HEAD_DIM = 64  # the one head dim the kernels are specialised for
-# csrc/flash_attn_bwd.cu's launch geometry: a block owns BWD_ROWS keys (dkv)
-# or queries (dq), 64 per consumer warpgroup; every TMA tile is BWD_TILE
-# rows of one 128-byte swizzle row each; the streamed tiles go through a
-# ring of BWD_STAGES slots; two consumer warpgroups and one producer
-BWD_ROWS, BWD_TILE, BWD_STAGES = 128, 64, 4
+TILE = 64  # rows of every TMA box, of one 128-byte swizzle row each
+# csrc/flash_attn_fwd.cu's launch geometry: a block owns FWD_ROWS queries,
+# 64 per consumer warpgroup, and streams K/V tiles of FWD_KEYS keys
+# through a ring of FWD_STAGES slots; two consumer warpgroups and one
+# producer
+FWD_ROWS, FWD_KEYS, FWD_STAGES = 128, 128, 4
+FWD_THREADS = 3 * 128
+# csrc/flash_attn_bwd.cu's: a block owns BWD_ROWS keys (dkv) or queries
+# (dq), 64 per consumer warpgroup; the streamed tiles go through a ring of
+# BWD_STAGES slots
+BWD_ROWS, BWD_STAGES = 128, 4
 BWD_THREADS = 3 * 128
 _TMA_STRIDE_ALIGN = 16  # bytes: every TMA global stride and base address
 _TMA_STRIDE_LIMIT = 1 << 40
@@ -203,11 +210,11 @@ def _strides(*tensors):
     return [ctypes.c_int64(st) for t in tensors for st in t.stride()[:3]]
 
 
-def bwd_tensor_map(t: torch.Tensor):
-    """The TMA tensor map the backward kernels read a [B,S,H,hd] bf16
-    input through: ``(dims, byte_strides, box)``, dims innermost first
+def tensor_map(t: torch.Tensor):
+    """The TMA tensor map the kernels read a [B,S,H,hd] bf16 input
+    through: ``(dims, byte_strides, box)``, dims innermost first
     ``(hd, S, H, B)``, the byte strides of S, H and B, and the box of one
-    [BWD_TILE, hd] tile.  Raises ValueError for a layout TMA cannot take: a
+    [TILE, hd] tile.  Raises ValueError for a layout TMA cannot take: a
     head dim that is not contiguous, a stride that is not a multiple of 16
     bytes (or not below 2^40), a base address that is not 16-byte
     aligned."""
@@ -223,7 +230,19 @@ def bwd_tensor_map(t: torch.Tensor):
             f"that are multiples of {_TMA_STRIDE_ALIGN} bytes and a "
             f"{_TMA_STRIDE_ALIGN}-byte aligned base; got element strides "
             f"{t.stride()} of {size}-byte elements at {t.data_ptr():#x}")
-    return (hd, s, h, b), strides, (hd, BWD_TILE, 1, 1)
+    return (hd, s, h, b), strides, (hd, TILE, 1, 1)
+
+
+def fwd_launch_geometry(b: int, s: int, h: int):
+    """``(grid, threads, smem_bytes)`` of the forward kernel on [b, s, h,
+    64] inputs: one block per FWD_ROWS queries of each (batch, head);
+    dynamic shared memory for the block's Q (FWD_ROWS rows), the ring of
+    K/V tile pairs, 2 * FWD_STAGES + 1 mbarriers and 1 KB to align the
+    tiles to the 128-byte swizzle's 1024-byte atom."""
+    row = HEAD_DIM * 2
+    smem = (FWD_ROWS * row + FWD_STAGES * 2 * FWD_KEYS * row
+            + (2 * FWD_STAGES + 1) * 8 + 1024)
+    return (-(-s // FWD_ROWS), h, b), FWD_THREADS, smem
 
 
 def bwd_launch_geometry(kernel: str, b: int, s: int, h: int):
@@ -235,9 +254,9 @@ def bwd_launch_geometry(kernel: str, b: int, s: int, h: int):
     to the 128-byte swizzle's 1024-byte atom."""
     if kernel not in ("dkv", "dq"):
         raise ValueError(f"no backward kernel {kernel!r}")
-    tile = BWD_TILE * HEAD_DIM * 2
-    stats = 2 * BWD_TILE * 4 if kernel == "dkv" else 0
-    smem = (2 * (BWD_ROWS // BWD_TILE) * tile
+    tile = TILE * HEAD_DIM * 2
+    stats = 2 * TILE * 4 if kernel == "dkv" else 0
+    smem = (2 * (BWD_ROWS // TILE) * tile
             + BWD_STAGES * (2 * tile + stats)
             + (2 * BWD_STAGES + 1) * 8 + 1024)
     return (-(-s // BWD_ROWS), h, b), BWD_THREADS, smem
@@ -275,17 +294,31 @@ def _shape_args(q: torch.Tensor):
     return [ctypes.c_int(n) for n in q.shape[:3]]
 
 
+def _in_strides(*inputs):
+    """The inputs' TMA byte strides (3 each), as a C int64 array."""
+    st = [x for t in inputs for x in tensor_map(t)[1]]
+    return ctypes.cast((ctypes.c_int64 * len(st))(*st),
+                       ctypes.POINTER(ctypes.c_int64))
+
+
+def _fwd_args(q, k, v, o, lse):
+    """The forward entry point's arguments before the scale: the
+    pointers, B, S, H, the inputs' TMA byte strides, o's element strides,
+    grid x and shared-memory bytes."""
+    grid, _, smem = fwd_launch_geometry(*q.shape[:3])
+    return (_pointers(q, k, v, o, lse) + _shape_args(q)
+            + [_in_strides(q, k, v)] + _strides(o)
+            + [ctypes.c_int(grid[0]), ctypes.c_int(smem)])
+
+
 def _bwd_args(kernel: str, q, k, v, do, lse, di, *outs):
     """The backward entry points' arguments before the scale: the
     pointers, B, S, H, the inputs' TMA byte strides, the outputs' element
     strides, grid x and shared-memory bytes."""
-    b, s, h, _ = q.shape
-    in_strides = (ctypes.c_int64 * 12)(
-        *(st for t in (q, k, v, do) for st in bwd_tensor_map(t)[1]))
-    grid, _, smem = bwd_launch_geometry(kernel, b, s, h)
+    grid, _, smem = bwd_launch_geometry(kernel, *q.shape[:3])
     return (_pointers(q, k, v, do, lse, di, *outs) + _shape_args(q)
-            + [ctypes.cast(in_strides, ctypes.POINTER(ctypes.c_int64))]
-            + _strides(*outs) + [ctypes.c_int(grid[0]), ctypes.c_int(smem)])
+            + [_in_strides(q, k, v, do)] + _strides(*outs)
+            + [ctypes.c_int(grid[0]), ctypes.c_int(smem)])
 
 
 def _on_cpu(q: torch.Tensor, name: str) -> bool:
@@ -312,8 +345,7 @@ def flash_attention_fwd(q, k, v, with_lse: bool = True):
            if with_lse else None)
     if o.numel():
         _launch("flash_attn_fwd", "lah_flash_attn_fwd_bf16", q,
-                _pointers(q, k, v, o, lse) + _shape_args(q)
-                + _strides(q, k, v, o))
+                _fwd_args(q, k, v, o, lse))
         flash_attention.launches += 1
     return o, lse
 

@@ -12,9 +12,10 @@ computed without ever writing the [n, V] logits to device memory:
   ``dl = (softmax - onehot) * dce`` straight into its product, dx
   accumulating over vocab tiles and dhead over row tiles.
 
-On a CUDA tensor each wrapper launches its kernel in
-``csrc/fused_ce.cu`` (bf16 operands, D in {128, 256, 384, 512}) or
-raises; on a CPU tensor it computes its plain version
+On a CUDA tensor each wrapper launches its kernel (bf16 operands, D in
+{128, 256, 384, 512}) or raises: K1 is ``csrc/fused_ce_fwd.cu``, a
+warp-specialised ``wgmma`` kernel fed by TMA, K2 and K3 are
+``csrc/fused_ce.cu``.  On a CPU tensor each computes its plain version
 (:func:`ce_fwd_reference`, :func:`ce_dx_reference`,
 :func:`ce_dhead_reference`), the same function written with the logits
 materialised.  :class:`FusedSoftmaxCE` ties them into one autograd
@@ -25,12 +26,15 @@ A target outside ``[0, V)`` picks no logit (``ce = lse``) and adds no
 one-hot term, as in the JAX kernels.  ``block_n``/``block_v`` are the
 TPU tiles: they only decide, through :func:`_check`, which shapes take
 the fused path (the same predicate as the JAX package); the Hopper
-kernels tile 64 x 64 themselves.  The kernels read the head as
+kernels tile themselves (K1 128 rows by 128 vocab columns, K2 and K3
+64 x 64).  The kernels read the head as
 ``head.t()``, [V, D] with D contiguous: the tied head ``embed.T`` is read
 in place, any other layout is copied once per call.
 
 What bounds the kernels on the H100 and how they are built: see the
-source's header comment.
+sources' header comments.  What K1 needs from its caller is computed here,
+so the CPU tests reach it: :func:`matrix_tensor_map` (the TMA tensor map
+of x and of head^T) and :func:`ce_fwd_launch_geometry`.
 """
 
 from __future__ import annotations
@@ -42,7 +46,15 @@ import torch
 DEFAULT_BLOCK_N = 128
 DEFAULT_BLOCK_V = 1024
 KERNEL_D = (128, 256, 384, 512)  # the hidden sizes the kernels are built for
-KERNEL_TILE = 64  # rows per tile on both sides of the Hopper kernels
+KERNEL_TILE = 64  # rows per tile on both sides of K2 and K3; V's multiple
+# csrc/fused_ce_fwd.cu's geometry: a block owns FWD_ROWS rows of x, 64 per
+# consumer warpgroup, held in shared memory as D/64 chunks of [FWD_ROWS,
+# 64]; head^T streams in chunks of [FWD_COLS vocab rows, 64] through a
+# ring of FWD_STAGES slots; two consumer warpgroups and one producer
+FWD_ROWS, FWD_COLS, FWD_CHUNK, FWD_STAGES = 128, 128, 64, 6
+FWD_THREADS = 3 * 128
+_TMA_ALIGN = 16  # bytes: every TMA global stride and base address
+_TMA_STRIDE_LIMIT = 1 << 40
 
 
 def _check(x, head, targets, block_n, block_v) -> str | None:
@@ -108,20 +120,61 @@ def ce_dhead_reference(x, head, targets, lse, dce) -> torch.Tensor:
 # ---- kernel wrappers ----
 
 
+def matrix_tensor_map(t: torch.Tensor, box_rows: int = FWD_ROWS):
+    """The TMA tensor map K1 reads a row-major [rows, D] bf16 matrix (x,
+    or head^T) through: ``(dims, byte_strides, box)``, dims innermost first
+    ``(D, rows)``, the byte stride of a row, and the box of [box_rows, 64]
+    (one 128-byte swizzle row of 64 values).  Raises ValueError for a
+    layout TMA cannot take: a D that is not contiguous, a row stride that
+    is not a multiple of 16 bytes (or not below 2^40), a base address that
+    is not 16-byte aligned."""
+    rows, d = t.shape
+    stride = t.stride(0) * t.element_size()
+    if (t.stride(1) != 1 or stride % _TMA_ALIGN
+            or not 0 <= stride < _TMA_STRIDE_LIMIT
+            or t.data_ptr() % _TMA_ALIGN):
+        raise ValueError(
+            f"TMA needs a contiguous last dim, a row stride that is a "
+            f"multiple of {_TMA_ALIGN} bytes and a {_TMA_ALIGN}-byte "
+            f"aligned base; got element strides {t.stride()} of "
+            f"{t.element_size()}-byte elements at {t.data_ptr():#x}")
+    return (d, rows), (stride,), (FWD_CHUNK, box_rows)
+
+
+def ce_fwd_launch_geometry(n: int, d: int):
+    """``(grid, threads, smem_bytes)`` of K1 on x [n, d]: one block per
+    FWD_ROWS rows; dynamic shared memory for the block's x rows, the ring
+    of head^T chunks, 2 * FWD_STAGES + 1 mbarriers and 1 KB to align the
+    tiles to the 128-byte swizzle's 1024-byte atom."""
+    chunk = FWD_ROWS * FWD_CHUNK * 2
+    smem = ((d // FWD_CHUNK) * chunk + FWD_STAGES * FWD_COLS * FWD_CHUNK * 2
+            + (2 * FWD_STAGES + 1) * 8 + 1024)
+    return (-(-n // FWD_ROWS),), FWD_THREADS, smem
+
+
+def _fwd_function():
+    from learning_at_home_tpu_torch.ops.build import load_library
+
+    fn = load_library("fused_ce_fwd").lah_fused_ce_fwd_bf16
+    if fn.argtypes is None:
+        p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        fn.argtypes = [p, i64, p, i64, p, p, p, i32, i32, i32, i32, i32, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def _functions():
     from learning_at_home_tpu_torch.ops.build import load_library
 
     lib = load_library("fused_ce")
-    fwd, dx, dhead = (lib.lah_fused_ce_fwd_bf16, lib.lah_fused_ce_dx_bf16,
-                      lib.lah_fused_ce_dhead_bf16)
-    if fwd.argtypes is None:
+    dx, dhead = lib.lah_fused_ce_dx_bf16, lib.lah_fused_ce_dhead_bf16
+    if dx.argtypes is None:
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        fwd.argtypes = [p, i64, p, i64, p, p, p, i32, i32, i32, p]
         dx.argtypes = [p, i64, p, i64, p, p, p, p, i64, i32, i32, i32, p]
         dhead.argtypes = dx.argtypes
-        for fn in (fwd, dx, dhead):
+        for fn in (dx, dhead):
             fn.restype = ctypes.c_int
-    return fwd, dx, dhead
+    return dx, dhead
 
 
 def _row_major(name: str, t: torch.Tensor) -> None:
@@ -167,6 +220,11 @@ def _cuda_operands(x, head, targets, *rows):
 
 
 def _raise_on(err: int, name: str) -> None:
+    if err < 0:
+        raise RuntimeError(
+            f"{name}: a TMA tensor map could not be encoded ("
+            + ("the driver lacks cuTensorMapEncodeTiled)" if err == -1
+               else f"CUresult {-1000 - err})"))
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
@@ -191,12 +249,15 @@ def ce_forward(x: torch.Tensor, head: torch.Tensor, targets: torch.Tensor):
     ce = torch.empty(n, dtype=torch.float32, device=x.device)
     lse = torch.empty_like(ce)
     if n:
-        fwd, _, _ = _functions()
+        (x_stride,), (w_stride,) = (matrix_tensor_map(x)[1],
+                                    matrix_tensor_map(w, FWD_COLS)[1])
+        (grid,), _, smem = ce_fwd_launch_geometry(n, d)
+        fwd = _fwd_function()
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
-            _raise_on(fwd(x.data_ptr(), x.stride(0), w.data_ptr(), w.stride(0),
+            _raise_on(fwd(x.data_ptr(), x_stride, w.data_ptr(), w_stride,
                           tgt.data_ptr(), ce.data_ptr(), lse.data_ptr(), n,
-                          w.shape[0], d, stream), "fused_ce_fwd")
+                          w.shape[0], d, grid, smem, stream), "fused_ce_fwd")
         ce_forward.launches += 1
     return ce, lse
 
@@ -211,7 +272,7 @@ def ce_dx(x, head, targets, lse, dce) -> torch.Tensor:
     n, d = x.shape
     dx = torch.empty((n, d), dtype=x.dtype, device=x.device)
     if n:
-        _, fn, _ = _functions()
+        fn, _ = _functions()
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
             _raise_on(fn(x.data_ptr(), x.stride(0), w.data_ptr(), w.stride(0),
@@ -233,7 +294,7 @@ def ce_dhead(x, head, targets, lse, dce) -> torch.Tensor:
     n, d = x.shape
     dw = torch.empty((w.shape[0], d), dtype=head.dtype, device=x.device)
     if n:
-        _, _, fn = _functions()
+        _, fn = _functions()
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
             _raise_on(fn(x.data_ptr(), x.stride(0), w.data_ptr(), w.stride(0),

@@ -1,8 +1,10 @@
 """Counter-based random numbers, bit for bit those of ``jax.random``.
 
 The port's counterpart of the parts of ``jax.random`` that router jitter
-uses (``ops/moe_dispatch.py``): :func:`PRNGKey`, :func:`fold_in`,
-:func:`random_bits` and :func:`uniform`, for JAX's default generator
+(``ops/moe_dispatch.py``) and sampled decoding (``models/transformer.py``
+``generate``) use: :func:`PRNGKey`, :func:`fold_in`, :func:`split`,
+:func:`random_bits`, :func:`uniform`, :func:`gumbel` and
+:func:`categorical`, for JAX's default generator
 (``jax_default_prng_impl = "threefry2x32"``) with
 ``jax_threefry_partitionable = True``, the default of JAX 0.9.  With that
 flag, element ``i`` (the row-major index) of a ``random_bits`` draw is
@@ -13,7 +15,14 @@ how it is split over devices.
 A key is an int64 tensor of shape [2] holding two uint32 words.  torch's
 ``uint32`` lacks most operations on both the CPU and CUDA, so the words
 live in ``int64`` and every add and rotate is masked back to 32 bits:
-the same code gives the same bits on both devices.
+the same code gives the same bits on both devices.  Every draw runs on
+the device of the key it is given.
+
+Everything up to :func:`uniform` is JAX's bit for bit.  :func:`gumbel`
+takes two logarithms, each rounded once from f64 (the correctly rounded
+value), where XLA's logarithm is within one f32 ulp of it: its noise is
+within an ulp of JAX's at each logarithm, so :func:`categorical` picks
+JAX's index except at a tie of that size.
 """
 
 from __future__ import annotations
@@ -84,6 +93,26 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     return torch.cat([y0, y1])
 
 
+def _counters(key: torch.Tensor, shape: tuple[int, ...]):
+    """The Threefry-2x32 hash of the 64-bit row-major counters of an array
+    of ``shape``, split into (high, low) words, as JAX's partitionable
+    draws count."""
+    size = 1
+    for s in shape:
+        size *= s
+    i = torch.arange(size, dtype=torch.int64, device=key.device)
+    return threefry2x32(key, i >> 32, i & _MASK)
+
+
+def split(key: torch.Tensor, num=2) -> torch.Tensor:
+    """``jax.random.split(key, num)``: ``num`` (an int or a shape) new
+    keys, [*shape, 2], key ``i`` the two words of the hash of counter
+    ``i``."""
+    shape = (num,) if isinstance(num, int) else tuple(num)
+    y0, y1 = _counters(key, shape)
+    return torch.stack([y0, y1], dim=-1).reshape(*shape, 2)
+
+
 def random_bits(key: torch.Tensor, bit_width: int,
                 shape: tuple[int, ...]) -> torch.Tensor:
     """``jax.random.bits`` of ``bit_width`` in 8, 16 or 32, as the signed
@@ -91,11 +120,7 @@ def random_bits(key: torch.Tensor, bit_width: int,
     if bit_width not in _BITS_TYPE:
         raise ValueError(f"bit_width must be 8, 16 or 32, got {bit_width}")
     shape = tuple(int(s) for s in shape)
-    size = 1
-    for s in shape:
-        size *= s
-    i = torch.arange(size, dtype=torch.int64, device=key.device)
-    y0, y1 = threefry2x32(key, i >> 32, i & _MASK)
+    y0, y1 = _counters(key, shape)
     bits = (y0 ^ y1) & ((1 << bit_width) - 1)
     return _as_signed(bits, bit_width).reshape(shape)
 
@@ -135,3 +160,24 @@ def uniform(key: torch.Tensor, shape: tuple[int, ...],
     else:  # bf16: rounded after each operation, as torch does
         scaled = floats * (hi - lo) + lo
     return torch.maximum(lo, scaled)
+
+
+def gumbel(key: torch.Tensor, shape: tuple[int, ...],
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``jax.random.gumbel`` in its default mode "low":
+    ``-log(-log(u))`` with ``u = uniform(key, minval=tiny)``, each
+    logarithm rounded to ``dtype`` from f64."""
+    u = uniform(key, shape, dtype, minval=torch.finfo(dtype).tiny)
+    inner = (-torch.log(u.double())).to(dtype)
+    return (-torch.log(inner.double())).to(dtype)
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor,
+                axis: int = -1) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, axis)`` (with replacement,
+    one draw per distribution): ``argmax(logits + gumbel)`` along
+    ``axis``, the gumbel noise of ``logits``' shape and dtype drawn on
+    ``logits``' device; int64 indices of ``logits``' shape without
+    ``axis``."""
+    noise = gumbel(key.to(logits.device), tuple(logits.shape), logits.dtype)
+    return torch.argmax(noise + logits, dim=axis)

@@ -40,6 +40,8 @@ def device_us(evt) -> float:
 
 
 def traced(fn, trace_path: Path | None):
+    """``(wall_ms, rows, prof)`` of one run of ``fn`` under the profiler:
+    rows ``(kernel, device ms, count)`` by device time."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -52,7 +54,7 @@ def traced(fn, trace_path: Path | None):
     # the time of the kernels it launched
     rows = [(e.key, device_us(e) / 1e3, e.count) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
-    return wall_ms, sorted(rows, key=lambda r: -r[1])
+    return wall_ms, sorted(rows, key=lambda r: -r[1]), prof
 
 
 def report(label: str, wall_ms: float, rows, top: int, minus=None,
@@ -110,7 +112,8 @@ def main() -> int:
             args.trace_dir.mkdir(parents=True, exist_ok=True)
             path = args.trace_dir / f"serving_{n}tok.trace.json"
         runs.append(traced(
-            lambda: model.generate(params, prompts, n, use_cache=True), path))
+            lambda: model.generate(params, prompts, n, use_cache=True),
+            path)[:2])
     print(f"{card_line()}; flagship-8k, 2 x 4096-token prompts")
     prefill = report("prefill (generate, 1 new token)", *runs[0], args.top)
     decode = report(f"decode, per step (of {DECODE_STEPS})", *runs[1],

@@ -17,8 +17,14 @@ It takes two warm-up steps on one fixed batch, then traces ``--steps``
 more with ``torch.profiler``.  It prints, per step, the wall time, the
 summed device time of the kernels, the device's busy share (summed kernel
 time over wall time; the port runs on one stream, so kernels do not
-overlap), the device time by kind of kernel and the kernels that take the
-most device time.
+overlap), the device time by kind of kernel, the kernels that take the
+most device time, and the device time of the model's profiler ranges
+(``models/transformer.py`` ``PROFILE_RANGE``: each layer's attention and
+MoE, the loss, the backward, the optimizer update), each without the
+ranges inside it, by kind of kernel.  The traced steps run the backward
+on the calling thread (autograd's device threads off), so that its
+kernels fall in the backward's range; remat's recompute of a layer falls
+in that layer's ranges.
 
     python3 profile_training.py [--config flagship-8k-train] [--steps 2]
                                 [--top 15] [--trace-dir traces]
@@ -33,13 +39,15 @@ import sys
 from pathlib import Path
 
 import torch
+from torch.autograd import DeviceType
 
 from chip_smoke import TRAINING, build_train, card_line
+from learning_at_home_tpu_torch.models.transformer import PROFILE_RANGE
 from profile_serving import report, traced
 
 # kernel name patterns, first match wins
 KINDS = [
-    ("fused CE (K1-K3)", r"fused_ce_kernel"),
+    ("fused CE (K1-K3)", r"fused_ce"),
     ("flash attention forward (K5 fwd)", r"flash_attn_fwd"),
     ("flash attention backward (K5 dkv, dq)", r"flash_attn_bwd"),
     ("scan (routing cumsum)", r"scan"),
@@ -56,6 +64,28 @@ def kind_of(name: str) -> str:
         if re.search(pattern, name):
             return kind
     return "other"
+
+
+def range_device_ms(prof, per: int) -> dict[str, dict[str, float]]:
+    """{range name: {kind of kernel: device ms per step}} of the model's
+    profiler ranges, each without the ranges nested in it, layer ranges
+    merged over layers ("layer*/attention")."""
+    out: dict[str, dict[str, float]] = {}
+    for evt in prof.events():
+        if (evt.device_type != DeviceType.CPU
+                or not evt.name.startswith(PROFILE_RANGE)):
+            continue
+        name = re.sub(r"layer\d+", "layer*", evt.name[len(PROFILE_RANGE):])
+        slot = out.setdefault(name, {})
+        stack = [evt]
+        while stack:  # the range's ops, down to the next nested range
+            e = stack.pop()
+            for k in e.kernels:
+                kind = kind_of(k.name)
+                slot[kind] = slot.get(kind, 0.0) + k.duration / 1e3 / per
+            stack.extend(c for c in e.cpu_children
+                         if not c.name.startswith(PROFILE_RANGE))
+    return out
 
 
 def main() -> int:
@@ -86,7 +116,10 @@ def main() -> int:
     if args.trace_dir is not None:
         args.trace_dir.mkdir(parents=True, exist_ok=True)
         path = args.trace_dir / f"{args.config}_step.trace.json"
-    wall_ms, rows = traced(lambda: run(args.steps), path)
+    with torch.autograd.set_multithreading_enabled(False):
+        wall_ms, rows, prof = traced(lambda: run(args.steps), path)
+    # the ranges' own device-side rows span kernels, they are none
+    rows = [r for r in rows if not r[0].startswith(PROFILE_RANGE)]
     print(f"{card_line()}; {args.config}, batch {ids.shape[0]} x "
           f"{model.cfg.seq_len} tokens")
     out = report(f"train step (mean of {args.steps})", wall_ms, rows,
@@ -97,10 +130,22 @@ def main() -> int:
     print("-- device time per step by kind of kernel")
     for kind, ms in sorted(kinds.items(), key=lambda kv: -kv[1]):
         print(f"   {ms:9.3f} ms {100 * ms / out['kernel_ms']:5.1f} %  {kind}")
+    ranges = range_device_ms(prof, args.steps)
+    ranges["(outside)"] = {
+        kind: ms - sum(r.get(kind, 0.0) for r in ranges.values())
+        for kind, ms in kinds.items()}
+    print("-- device time per step by profiler range (without the ranges "
+          "inside it), by kind of kernel")
+    for name, by_kind in sorted(ranges.items(),
+                                key=lambda kv: -sum(kv[1].values())):
+        top = sorted(by_kind.items(), key=lambda kv: -kv[1])[:4]
+        print(f"   {sum(by_kind.values()):9.3f} ms  {name}: "
+              + ", ".join(f"{kind} {ms:.2f}" for kind, ms in top))
     print(json.dumps({"train_step": {"config": args.config,
                                      "wall_ms": out["wall_ms"],
                                      "kernel_ms": out["kernel_ms"],
-                                     "by_kind_ms": kinds}}))
+                                     "by_kind_ms": kinds,
+                                     "by_range_ms": ranges}}))
     return 0
 
 

@@ -46,13 +46,13 @@ def test_tensor_map_of_each_layout(layout, s):
         "transposed do, contiguous": (_transposed(s).contiguous(),
                                       (H * ROW, ROW, s * H * ROW)),
     }[layout]
-    dims, byte_strides, box = fa.bwd_tensor_map(t)
+    dims, byte_strides, box = fa.tensor_map(t)
     assert dims == (HD, s, H, B)  # innermost first
     if s == 1:  # a size-1 dim's stride is whatever torch left: never read
         byte_strides, strides = byte_strides[1:], strides[1:]
     assert byte_strides == strides
     assert all(st % 16 == 0 for st in byte_strides)
-    assert box == (HD, fa.BWD_TILE, 1, 1)
+    assert box == (HD, fa.TILE, 1, 1)
     assert box[0] * t.element_size() == 128  # one 128-byte swizzle row
 
 
@@ -78,7 +78,7 @@ def test_geometry_matches_the_kernel_source():
         return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
 
     assert const("kRows") == fa.BWD_ROWS
-    assert const("kTile") == fa.BWD_TILE
+    assert const("kTile") == fa.TILE
     assert const("kStages") == fa.BWD_STAGES
     assert const("kThreads") == fa.BWD_THREADS
     assert const("kHeadDim") == fa.HEAD_DIM
@@ -111,7 +111,7 @@ def test_layouts_tma_cannot_take_are_refused_before_any_launch(make,
                                                                monkeypatch):
     bad = make()
     with pytest.raises(ValueError, match="TMA"):
-        fa.bwd_tensor_map(bad)
+        fa.tensor_map(bad)
     launched = []
     monkeypatch.setattr(fa, "_launch", lambda *a: launched.append(a))
     good = torch.zeros(bad.shape, dtype=torch.bfloat16)

@@ -13,6 +13,9 @@ from learning_at_home_tpu_torch.ops import flash_attention as fa
 # bf16 rounding of P and of O (2^-8 relative each) against the plain
 # version computed in f32 from the same bf16 inputs
 ATOL, RTOL = 1.6e-2, 8e-3
+# lse: f32 summation order of the scores and exp2's few-2^-22 relative
+# error, against values near log(S) (test_torch_flash_bwd_cuda.py)
+LSE_ATOL = 1e-3
 
 
 @pytest.fixture
@@ -63,3 +66,30 @@ def test_kernel_refuses_what_it_does_not_take(card):
     with pytest.raises(ValueError):
         fa.flash_attention(q[..., :32], k[..., :32], v[..., :32])
     assert fa.flash_attention.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("with_lse", [False, True])
+@pytest.mark.parametrize("s", [1, 65, 70, 1000, 8193])
+def test_forward_at_ragged_lengths(card, s, with_lse, packed):
+    """Lengths one past a tile, inside one, and one row: keys past S come
+    in as zeros and must be masked, rows past S must not be written; with
+    and without the lse output, contiguous and packed-qkv strides."""
+    b, h = (1, 2) if s > 4096 else (2, 3)
+    if packed:
+        q, k, v = torch.randn((b, s, 3, h, 64), generator=card,
+                              device="cuda").to(torch.bfloat16).unbind(2)
+    else:
+        q, k, v = _qkv((b, s, h, 64), card)
+    o, lse = fa.flash_attention_fwd(q, k, v, with_lse=with_lse)
+    torch.cuda.synchronize()
+    want_o, want_lse = fa.attention_fwd_reference(q.float(), k.float(),
+                                                  v.float())
+    assert o.shape == q.shape and o.dtype == torch.bfloat16
+    torch.testing.assert_close(o.float(), want_o, atol=ATOL, rtol=RTOL)
+    if with_lse:
+        assert lse.shape == (b, h, s) and lse.dtype == torch.float32
+        torch.testing.assert_close(lse, want_lse, atol=LSE_ATOL, rtol=0)
+    else:
+        assert lse is None

@@ -118,3 +118,23 @@ def test_kernels_refuse_what_they_do_not_take(card):
                                        device="cuda"), tgt)
     assert (fce.ce_forward.launches, fce.ce_dx.launches,
             fce.ce_dhead.launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,v", [(1000, 1088), (128, 64), (333, 2048)])
+@pytest.mark.parametrize("d", fce.KERNEL_D)
+def test_forward_kernel_at_every_width(card, d, n, v):
+    """K1 at every D it is built for, n not a multiple of its 128-row
+    block, V a multiple of 64 that is not one of 128 (its last vocab tile
+    half empty), targets outside [0, V) among the rows."""
+    x, head, tgt, _ = _inputs(card, n, d, v)
+    before = fce.ce_forward.launches
+    ce, lse = fce.ce_forward(x, head, tgt)
+    torch.cuda.synchronize()
+    assert fce.ce_forward.launches == before + 1
+    want_ce, want_lse = fce.ce_fwd_reference(x, head, tgt)
+    torch.testing.assert_close(lse, want_lse, atol=CE_ATOL, rtol=0)
+    torch.testing.assert_close(ce, want_ce, atol=CE_ATOL, rtol=0)
+    outside = (tgt < 0) | (tgt >= v)
+    assert outside.any()
+    torch.testing.assert_close(ce[outside], lse[outside], atol=0, rtol=0)

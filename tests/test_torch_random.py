@@ -95,3 +95,98 @@ def test_uniform_refuses_other_dtypes():
         tr.uniform(tr.PRNGKey(0), (3,), torch.float16)
     with pytest.raises(ValueError, match="bit_width"):
         tr.random_bits(tr.PRNGKey(0), 64, (3,))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("num", [2, 3, 1, (2, 3)])
+def test_split_matches_jax(seed, num):
+    key, jkey = tr.PRNGKey(seed), jax.random.PRNGKey(seed)
+    got = tr.split(key, num)
+    want = _words(jax.random.split(jkey, num))
+    assert got.dtype == torch.int64 and got.shape == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_nested_splits_match_jax(seed):
+    """The decode loop's chain: ``rng, sub = split(rng)`` every step, and
+    the subkeys split again."""
+    key, jkey = tr.PRNGKey(seed), jax.random.PRNGKey(seed)
+    for _ in range(6):
+        key, sub = tr.split(key)
+        jkey, jsub = jax.random.split(jkey)
+        np.testing.assert_array_equal(sub.numpy(), _words(jsub))
+        np.testing.assert_array_equal(tr.split(sub, 3).numpy(),
+                                      _words(jax.random.split(jsub, 3)))
+    np.testing.assert_array_equal(key.numpy(), _words(jkey))
+
+
+def _log_f32(x: np.ndarray) -> np.ndarray:
+    """XLA's f32 logarithm on the CPU, jitted as the sampler runs it."""
+    return np.asarray(jax.jit(jnp.log)(jnp.asarray(x)))
+
+
+def _ulps(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Distance in f32 ulps of two arrays of one sign."""
+    return np.abs(a.view(np.int32).astype(np.int64)
+                  - b.view(np.int32).astype(np.int64))
+
+
+@pytest.mark.parametrize("shape", [(7, 5), (4096, 64)])
+@pytest.mark.parametrize("seed", [0, 0x5EED])
+def test_gumbel_matches_jax_within_an_ulp(seed, shape):
+    """f32 noise ``-log(-log(u))``: each of the port's two logarithms is
+    within one f32 ulp of XLA's on the same input (the port's is the
+    correctly rounded one), so the noise is JAX's up to what one ulp at
+    each logarithm makes; and bit for bit wherever XLA's two logarithms
+    are the correctly rounded ones."""
+    jkey, key = jax.random.PRNGKey(seed), tr.PRNGKey(seed)
+    want = np.asarray(jax.random.gumbel(jkey, shape, jnp.float32))
+    got = tr.gumbel(key, shape, torch.float32)
+    assert got.dtype == torch.float32 and tuple(got.shape) == shape
+    got = got.numpy()
+    u = np.asarray(jax.random.uniform(jkey, shape, jnp.float32,
+                                      minval=np.finfo(np.float32).tiny))
+    np.testing.assert_array_equal(
+        tr.uniform(key, shape, torch.float32,
+                   minval=np.finfo(np.float32).tiny).numpy(), u)
+    inner = -_log_f32(u)  # > 0
+    port_inner = (-np.log(u.astype(np.float64))).astype(np.float32)
+    assert _ulps(port_inner, inner).max() <= 1
+    outer = _log_f32(inner)
+    port_outer = np.log(inner.astype(np.float64)).astype(np.float32)
+    assert (np.sign(outer) == np.sign(port_outer)).all()
+    assert _ulps(port_outer, outer).max() <= 1
+    # one ulp at each logarithm, carried through the outer one
+    limit = 2 * np.spacing(np.abs(want)) + np.spacing(inner) / inner
+    assert (np.abs(got - want) <= limit).all()
+    exact = (inner == port_inner) & (outer == port_outer)
+    assert exact.mean() > 0.5
+    np.testing.assert_array_equal(got[exact].view(np.int32),
+                                  want[exact].view(np.int32))
+
+
+def test_gumbel_bf16_matches_jax_bitwise():
+    for seed in SEEDS:
+        want = np.asarray(jax.random.gumbel(jax.random.PRNGKey(seed),
+                                            (513, 17), jnp.bfloat16))
+        got = tr.gumbel(tr.PRNGKey(seed), (513, 17), torch.bfloat16)
+        np.testing.assert_array_equal(got.view(torch.int16).numpy(),
+                                      want.view(np.int16))
+
+
+@pytest.mark.parametrize("axis", [-1, 0])
+@pytest.mark.parametrize("seed", SEEDS)
+def test_categorical_picks_jax_indices(seed, axis):
+    """Logits of one row of a decode step (temperature-scaled model
+    logits) and a wide batch: the same index for every distribution."""
+    rng = np.random.default_rng(seed % 1000)
+    logits = (rng.standard_normal((16, 2048)) / 0.7).astype(np.float32)
+    if axis == 0:
+        logits = logits.T.copy()
+    jkey, key = jax.random.PRNGKey(seed), tr.PRNGKey(seed)
+    want = np.asarray(jax.random.categorical(jkey, jnp.asarray(logits),
+                                             axis=axis))
+    got = tr.categorical(key, torch.from_numpy(logits), axis=axis)
+    assert tuple(got.shape) == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)

@@ -18,6 +18,7 @@ from learning_at_home_tpu.models.transformer import (
     DMoETransformerLM as JaxLM,
 )
 from learning_at_home_tpu.parallel.mesh import make_mesh
+from learning_at_home_tpu_torch import random as prng
 from learning_at_home_tpu_torch.convert import (
     param_shapes,
     params_from_jax,
@@ -236,6 +237,9 @@ def test_generate_decodes_with_eval_routing(pairs, over):
 
 
 def test_generate_validates_and_samples_with_a_generator(pairs):
+    """The sampling path's validation, and its draws: a function of the
+    rng key alone (the same key gives the same tokens, another key other
+    tokens), with the prompt kept."""
     pair = pairs["stacked"]
     m, p = pair.tmodel, pair.tparams
     ids = torch.from_numpy(_ids(5, (2, 6)))
@@ -247,7 +251,27 @@ def test_generate_validates_and_samples_with_a_generator(pairs):
             m.generate(p, *args, **kw)
     assert m.generate(p, ids, 0) is ids
     draws = [m.generate(p, ids, 5, temperature=0.7, use_cache=True,
-                        generator=torch.Generator().manual_seed(11))
-             for _ in range(2)]
+                        rng=prng.PRNGKey(seed)) for seed in (11, 11, 12)]
     assert torch.equal(draws[0], draws[1]) and draws[0].shape == (2, 11)
+    assert not torch.equal(draws[0], draws[2])
     assert torch.equal(draws[0][:, :6], ids)
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+@pytest.mark.parametrize("use_cache", [True, False])
+def test_sampled_generate_matches_jax_token_for_token(pairs, use_cache, seed):
+    """At temperature 0.7 the port splits the key where the JAX package
+    does and draws with the same categorical: the same tokens on both
+    decode paths, from the same seed and converted params."""
+    pair = pairs["stacked"]
+    prompt = _ids(8, (3, 4))
+    want = np.asarray(pair.jmodel.generate(
+        pair.jparams, jnp.asarray(prompt), 12, temperature=0.7,
+        rng=jax.random.PRNGKey(seed), use_cache=use_cache))
+    got = pair.tmodel.generate(pair.tparams, torch.from_numpy(prompt), 12,
+                               temperature=0.7, rng=prng.PRNGKey(seed),
+                               use_cache=use_cache)
+    greedy = np.asarray(pair.jmodel.generate(
+        pair.jparams, jnp.asarray(prompt), 12, use_cache=use_cache))
+    assert (want != greedy).any()  # the draws are not the argmax
+    np.testing.assert_array_equal(got.numpy(), want)
