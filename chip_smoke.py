@@ -14,13 +14,14 @@ Phases, each of which asserts (none catches its own failure):
                ``build/kernels/`` (one nvcc each, all at once) and prints
                ptxas's registers, static shared memory, spills, warnings
                and notes (C7512: wgmma serialised) per kernel, and the
-               warp-specialised kernels' dynamic shared memory.
+               warp-specialised kernels' dynamic shared memory (K1-K3 with
+               their grid, K2 and K3 with their cluster size).
 3. kernels  -- each kernel against its plain PyTorch version on the card,
                at the main paths' shapes and at smaller ones (K5 also at
-               S = 8193, one row past a tile; K1 also at a ragged n and
+               S = 8193, one row past a tile; K1-K3 also at a ragged n and
                V = 64 * odd), within the stated tolerances; the K5
-               backward at [4, 8192, 8, 64]
-               launched twice must give the same bits; K4 (token dispatch)
+               backward at [4, 8192, 8, 64] and K2, K3 at flagship-train's
+               shape launched twice must give the same bits; K4 (token dispatch)
                bit for bit on ragged cases (f32 rows of d = 100, one
                token, every slot empty, every slot full).
 4. small    -- a tiny f32 model on the card against the same model on the
@@ -79,8 +80,10 @@ Phases, each of which asserts (none catches its own failure):
                the PyTorch call computing the same function (SDPA for the
                attention forward; for K1-K3, the attention backward and
                K4, which no single call computes, a yardstick: the cuBLAS
-               product ``x @ head`` of K1's shape, SDPA's backward of dq,
-               dk and dv together, and ``index_select`` of the same rows),
+               products of each CE kernel unfused -- ``x @ head`` for K1,
+               then ``@ head^T`` for K2 or ``x^T @`` for K3 --, SDPA's
+               backward of dq, dk and dv together, and ``index_select``
+               of the same rows),
                each with its share of its bound (bound / time); and the
                router-jitter noise of one layer drawn without its cache.
 
@@ -100,6 +103,9 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -414,6 +420,13 @@ def check_fused_ce(shape, gen, results) -> None:
     ce, lse = fce.ce_forward(x, head, tgt)
     dx = fce.ce_dx(x, head, tgt, lse, dce)
     dhead = fce.ce_dhead(x, head, tgt, lse, dce)
+    if shape == CE_TRAIN:  # deterministic: a second launch, the same bits
+        same = [torch.equal(_bits(a), _bits(b)) for a, b in (
+            (dx, fce.ce_dx(x, head, tgt, lse, dce)),
+            (dhead, fce.ce_dhead(x, head, tgt, lse, dce)))]
+        print(f"fused CE {list(shape)}: dx, dhead of two launches bit for "
+              f"bit: {same}")
+        assert all(same), "K2 or K3 is not deterministic"
     torch.cuda.synchronize()
     want_ce, want_lse = fce.ce_fwd_reference(x, head, tgt)
     assert torch.isfinite(ce).all() and torch.isfinite(lse).all()
@@ -1030,37 +1043,45 @@ def time_jitter_noise() -> None:
 
 
 def time_fused_ce(shape, gen, results) -> None:
-    """Phase 8 for K1-K3 at one shape: kernel, plain version, cuBLAS
-    yardstick, bound."""
+    """Phase 11 for K1-K3 at one shape: kernel, plain version, cuBLAS
+    yardstick, bound.  The yardsticks are the kernels' products unfused,
+    with the [n, V] logits written and read in bf16: K1's ``x @ head``;
+    K2's ``x @ head`` then ``logits @ head^T``; K3's ``x @ head`` then
+    ``x^T @ logits``, each pair timed as one."""
     n, d, v = shape
     x, head, tgt, dce = ce_inputs(n, d, v, gen)
     _, lse = fce.ce_forward(x, head, tgt)
-    yard_ms = median_ms(lambda: torch.matmul(x, head))
     rows = 4 * n  # targets read, ce / lse written or lse / dce read (4 bytes)
     fwd_bytes = 2 * n * d + 2 * d * v + rows + 2 * 4 * n
     cases = [
         ("fused_ce_fwd", lambda: fce.ce_forward(x, head, tgt),
          lambda: fce.ce_fwd_reference(x, head, tgt),
-         2 * n * d * v, fwd_bytes),
+         2 * n * d * v, fwd_bytes,
+         "torch.matmul(x, head) bf16 (cuBLAS), K1's product",
+         lambda: torch.matmul(x, head)),
         ("fused_ce_dx", lambda: fce.ce_dx(x, head, tgt, lse, dce),
          lambda: fce.ce_dx_reference(x, head, tgt, lse, dce),
-         4 * n * d * v, 2 * n * d + 2 * d * v + 3 * rows + 2 * n * d),
+         4 * n * d * v, 2 * n * d + 2 * d * v + 3 * rows + 2 * n * d,
+         "(x @ head) @ head.T bf16 (cuBLAS, two products), K2's unfused",
+         lambda: torch.matmul(torch.matmul(x, head), head.t())),
         ("fused_ce_dhead", lambda: fce.ce_dhead(x, head, tgt, lse, dce),
          lambda: fce.ce_dhead_reference(x, head, tgt, lse, dce),
-         4 * n * d * v, 2 * n * d + 2 * d * v + 3 * rows + 2 * d * v),
+         4 * n * d * v, 2 * n * d + 2 * d * v + 3 * rows + 2 * d * v,
+         "x.T @ (x @ head) bf16 (cuBLAS, two products), K3's unfused",
+         lambda: torch.matmul(x.t(), torch.matmul(x, head))),
     ]
-    for name, kernel, plain, flops, nbytes in cases:
+    for name, kernel, plain, flops, nbytes, yard, yard_fn in cases:
         ms = median_ms(kernel)
         plain_ms = median_ms(plain, reps=5, warmup=1)
+        yard_ms = median_ms(yard_fn)
         bound_ms, bound_by = bound(flops, nbytes)
         print(f"{name} {list(shape)}: {ms:.4f} ms ({flops / ms / 1e9:.1f} "
-              f"TFLOP/s), plain {plain_ms:.4f} ms, cuBLAS x@head "
-              f"{yard_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
-              f"{bound_ms / ms:.3f} of it)")
+              f"TFLOP/s), plain {plain_ms:.4f} ms, yardstick {yard_ms:.4f} "
+              f"ms ({flops / yard_ms / 1e9:.1f} TFLOP/s), bound "
+              f"{bound_ms:.4f} ms ({bound_by}; {bound_ms / ms:.3f} of it)")
         record(results, name, shape, ms=ms, plain_ms=plain_ms,
                bound_ms=bound_ms, bound_by=bound_by,
-               bound_share=bound_ms / ms, library_ms=None,
-               yardstick="torch.matmul(x, head) bf16 (cuBLAS), K1's product",
+               bound_share=bound_ms / ms, library_ms=None, yardstick=yard,
                yardstick_ms=yard_ms)
 
 
@@ -1139,6 +1160,7 @@ def report_build() -> None:
             if any(w in line for w in ("entry function", "registers", "spill",
                                        "warning", "Performance", "C7512")):
                 print(f"  {name}: {line.strip()}")
+    sass_report()
     _, threads, smem = fa.fwd_launch_geometry(*TRAIN_ATTN[:3])
     print(f"  flash_attn_fwd: {threads} threads, {smem} bytes dynamic smem")
     for kernel in ("dkv", "dq"):
@@ -1151,6 +1173,42 @@ def report_build() -> None:
         print(f"  fused_ce_fwd [n={n}, D={d}]: {grid[0]} blocks of {threads} "
               f"threads ({grid[0] / sms:.2f} waves of {sms} SMs), {smem} "
               "bytes dynamic smem")
+    for n, d, v in (CE_TRAIN, CE_8K_TRAIN):
+        for mode in fce.BWD_MODES:
+            grid, cluster, threads, smem = fce.ce_bwd_launch_geometry(
+                n, v, d, mode)
+            print(f"  fused_ce_{mode} [n={n}, D={d}, V={v}]: {grid[0]} "
+                  f"blocks of {threads} threads in clusters of {cluster} "
+                  f"({grid[0] / sms:.2f} waves of {sms} SMs), {smem} bytes "
+                  "dynamic smem")
+
+
+def sass_report() -> None:
+    """Each wgmma kernel this process built, from cuobjdump's SASS: its
+    HGMMA instructions, the WARPGROUP.DEPBAR waits among them (one per
+    HGMMA: ptxas serialised the products) and its spill instructions
+    (STL, LDL)."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(build.DEFAULT_NVCC), "cuobjdump")
+    if not os.path.exists(tool):
+        print("  cuobjdump not found: no SASS counts")
+        return
+    for name in build.build_reports:
+        sass = subprocess.run(
+            [tool, "-sass", str(build._library_path(name))],
+            capture_output=True, text=True, check=True, timeout=300).stdout
+        for func in sass.split("Function : ")[1:]:
+            lines = func.splitlines()
+            hgmma = sum("HGMMA" in line for line in lines)
+            if not hgmma:
+                continue
+            kernel = re.search(r"_cu_[0-9a-f]{8}\d+(\w+?kernel(I\w+?E)?)E",
+                               lines[0])
+            depbar = sum("DEPBAR" in line for line in lines)
+            spills = sum(bool(re.search(r"\b(STL|LDL)\b", line))
+                         for line in lines)
+            print(f"  {name}: {kernel.group(1) if kernel else lines[0]}: "
+                  f"{hgmma} HGMMA, {depbar} DEPBAR, {spills} STL/LDL")
 
 
 # kernel families: their libraries (for --kernels-only)

@@ -13,9 +13,9 @@ computed without ever writing the [n, V] logits to device memory:
   accumulating over vocab tiles and dhead over row tiles.
 
 On a CUDA tensor each wrapper launches its kernel (bf16 operands, D in
-{128, 256, 384, 512}) or raises: K1 is ``csrc/fused_ce_fwd.cu``, a
-warp-specialised ``wgmma`` kernel fed by TMA, K2 and K3 are
-``csrc/fused_ce.cu``.  On a CPU tensor each computes its plain version
+{128, 256, 384, 512}) or raises: K1 is ``csrc/fused_ce_fwd.cu``, K2 and
+K3 are one template in ``csrc/fused_ce.cu``, all warp-specialised
+``wgmma`` kernels fed by TMA.  On a CPU tensor each computes its plain version
 (:func:`ce_fwd_reference`, :func:`ce_dx_reference`,
 :func:`ce_dhead_reference`), the same function written with the logits
 materialised.  :class:`FusedSoftmaxCE` ties them into one autograd
@@ -26,15 +26,18 @@ A target outside ``[0, V)`` picks no logit (``ce = lse``) and adds no
 one-hot term, as in the JAX kernels.  ``block_n``/``block_v`` are the
 TPU tiles: they only decide, through :func:`_check`, which shapes take
 the fused path (the same predicate as the JAX package); the Hopper
-kernels tile themselves (K1 128 rows by 128 vocab columns, K2 and K3
-64 x 64).  The kernels read the head as
+kernels tile themselves (K1: 128 rows of x a block, 128 vocab columns a
+tile; K2 and K3: 64 fixed rows a block, x rows for K2 and vocab rows for
+K3, and 64-row tiles of the other operand streamed past them).  The
+kernels read the head as
 ``head.t()``, [V, D] with D contiguous: the tied head ``embed.T`` is read
 in place, any other layout is copied once per call.
 
 What bounds the kernels on the H100 and how they are built: see the
-sources' header comments.  What K1 needs from its caller is computed here,
-so the CPU tests reach it: :func:`matrix_tensor_map` (the TMA tensor map
-of x and of head^T) and :func:`ce_fwd_launch_geometry`.
+sources' header comments.  What the kernels need from their caller is
+computed here, so the CPU tests reach it: :func:`matrix_tensor_map` (the
+TMA tensor map of x and of head^T), :func:`ce_fwd_launch_geometry` (K1)
+and :func:`ce_bwd_launch_geometry` (K2, K3).
 """
 
 from __future__ import annotations
@@ -46,13 +49,23 @@ import torch
 DEFAULT_BLOCK_N = 128
 DEFAULT_BLOCK_V = 1024
 KERNEL_D = (128, 256, 384, 512)  # the hidden sizes the kernels are built for
-KERNEL_TILE = 64  # rows per tile on both sides of K2 and K3; V's multiple
+KERNEL_TILE = 64  # V's multiple: K2 and K3's fixed rows and streamed tile
 # csrc/fused_ce_fwd.cu's geometry: a block owns FWD_ROWS rows of x, 64 per
 # consumer warpgroup, held in shared memory as D/64 chunks of [FWD_ROWS,
 # 64]; head^T streams in chunks of [FWD_COLS vocab rows, 64] through a
 # ring of FWD_STAGES slots; two consumer warpgroups and one producer
 FWD_ROWS, FWD_COLS, FWD_CHUNK, FWD_STAGES = 128, 128, 64, 6
 FWD_THREADS = 3 * 128
+# csrc/fused_ce.cu's geometry: a block owns BWD_ROWS fixed rows (x rows for
+# K2, vocab rows of head^T for K3), held in shared memory as D/64 boxes of
+# [BWD_ROWS, 64]; [BWD_TILE, D] tiles of the other operand stream through
+# BWD_STAGES[D] stages; two consumer warpgroups split the accumulator's D
+# columns, the first warp also loading; two [BWD_ROWS, BWD_TILE] bf16 dl
+# slots; no clusters
+BWD_ROWS, BWD_TILE = 64, 64
+BWD_STAGES = {128: 4, 256: 4, 384: 3, 512: 2}
+BWD_THREADS = 2 * 128
+BWD_MODES = ("dx", "dhead")
 _TMA_ALIGN = 16  # bytes: every TMA global stride and base address
 _TMA_STRIDE_LIMIT = 1 << 40
 
@@ -152,6 +165,23 @@ def ce_fwd_launch_geometry(n: int, d: int):
     return (-(-n // FWD_ROWS),), FWD_THREADS, smem
 
 
+def ce_bwd_launch_geometry(n: int, v: int, d: int, mode: str):
+    """``(grid, cluster, threads, smem_bytes)`` of K2 (``mode`` "dx") or
+    K3 ("dhead") on x [n, d] and head [d, v]: one block per BWD_ROWS fixed
+    rows (of x for K2, of head^T for K3), clusters of 1; dynamic shared
+    memory for the fixed rows, BWD_STAGES[d] streamed tiles, two bf16 dl
+    tiles, the lse, dce and targets of each stage's streamed rows (K3)
+    and of the fixed rows (K2), the 2 * stages + 1 mbarriers and 1 KB to
+    align the tiles to the 128-byte swizzle's 1024-byte atom."""
+    if mode not in BWD_MODES:
+        raise ValueError(f"mode is one of {BWD_MODES}, got {mode!r}")
+    stages = BWD_STAGES[d]
+    tile = BWD_TILE * d * 2
+    smem = (BWD_ROWS * d * 2 + stages * tile + 2 * BWD_ROWS * BWD_TILE * 2
+            + (stages + 1) * 3 * BWD_TILE * 4 + (2 * stages + 1) * 8 + 1024)
+    return (-(-(n if mode == "dx" else v) // BWD_ROWS),), 1, BWD_THREADS, smem
+
+
 def _fwd_function():
     from learning_at_home_tpu_torch.ops.build import load_library
 
@@ -170,24 +200,18 @@ def _functions():
     dx, dhead = lib.lah_fused_ce_dx_bf16, lib.lah_fused_ce_dhead_bf16
     if dx.argtypes is None:
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        dx.argtypes = [p, i64, p, i64, p, p, p, p, i64, i32, i32, i32, p]
+        dx.argtypes = [p, i64, p, i64, p, p, p, p, i64, i32, i32, i32, i32,
+                       i32, p]
         dhead.argtypes = dx.argtypes
         for fn in (dx, dhead):
             fn.restype = ctypes.c_int
     return dx, dhead
 
 
-def _row_major(name: str, t: torch.Tensor) -> None:
-    if t.stride(1) != 1 or t.stride(0) % 8 or t.data_ptr() % 16:
-        raise ValueError(
-            f"{name} needs a contiguous last dim, a row stride that is a "
-            f"multiple of 8 elements and 16-byte alignment, got strides "
-            f"{t.stride()}")
-
-
 def _cuda_operands(x, head, targets, *rows):
-    """Validate the kernels' inputs; returns (w = head^T [V, D] with D
-    contiguous, int32 targets, contiguous f32 row vectors)."""
+    """Validate the kernels' inputs (their layouts: :func:`matrix_tensor_map`);
+    returns (w = head^T [V, D] with D contiguous, int32 targets,
+    contiguous f32 row vectors)."""
     if x.dim() != 2 or head.dim() != 2 or x.shape[1] != head.shape[0]:
         raise ValueError(f"x [n, D] and head [D, V] expected, got "
                          f"{tuple(x.shape)} and {tuple(head.shape)}")
@@ -212,8 +236,6 @@ def _cuda_operands(x, head, targets, *rows):
     w = head.t()
     if w.stride(1) != 1:  # an untied [D, V] head: one copy, [V, D]
         w = w.contiguous()
-    _row_major("x", x)
-    _row_major("head^T", w)
     targets = targets.to(torch.int32).contiguous()
     rows = [r.float().contiguous() for r in rows]
     return w, targets, rows
@@ -262,25 +284,38 @@ def ce_forward(x: torch.Tensor, head: torch.Tensor, targets: torch.Tensor):
     return ce, lse
 
 
+def _ce_bwd(mode, x, head, targets, lse, dce) -> torch.Tensor:
+    """Launch K2 (``mode`` "dx": dx [n, D]) or K3 ("dhead": dw = dhead^T
+    [V, D]) on CUDA tensors."""
+    w, tgt, (lse, dce) = _cuda_operands(x, head, targets, lse, dce)
+    n, d = x.shape
+    v = w.shape[0]
+    dtype = x.dtype if mode == "dx" else head.dtype
+    out = torch.empty((n, d) if mode == "dx" else (v, d), dtype=dtype,
+                      device=x.device)
+    if not n:
+        return out.zero_()
+    (x_stride,), (w_stride,) = (matrix_tensor_map(x, BWD_ROWS)[1],
+                                matrix_tensor_map(w, BWD_TILE)[1])
+    (grid,), _, _, smem = ce_bwd_launch_geometry(n, v, d, mode)
+    fn = _functions()[BWD_MODES.index(mode)]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        _raise_on(fn(x.data_ptr(), x_stride, w.data_ptr(), w_stride,
+                     tgt.data_ptr(), lse.data_ptr(), dce.data_ptr(),
+                     out.data_ptr(), out.stride(0), n, v, d, grid, smem,
+                     stream), f"fused_ce_{mode}")
+    (ce_dx if mode == "dx" else ce_dhead).launches += 1
+    return out
+
+
 def ce_dx(x, head, targets, lse, dce) -> torch.Tensor:
     """K2: dx [n, D] in x's dtype.  CPU tensors take
     :func:`ce_dx_reference`; CUDA tensors launch the kernel
     (``ce_dx.launches``)."""
     if _on_cpu(x, "ce_dx"):
         return ce_dx_reference(x, head, targets, lse, dce)
-    w, tgt, (lse, dce) = _cuda_operands(x, head, targets, lse, dce)
-    n, d = x.shape
-    dx = torch.empty((n, d), dtype=x.dtype, device=x.device)
-    if n:
-        fn, _ = _functions()
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            _raise_on(fn(x.data_ptr(), x.stride(0), w.data_ptr(), w.stride(0),
-                         tgt.data_ptr(), lse.data_ptr(), dce.data_ptr(),
-                         dx.data_ptr(), dx.stride(0), n, w.shape[0], d,
-                         stream), "fused_ce_dx")
-        ce_dx.launches += 1
-    return dx
+    return _ce_bwd("dx", x, head, targets, lse, dce)
 
 
 def ce_dhead(x, head, targets, lse, dce) -> torch.Tensor:
@@ -290,19 +325,7 @@ def ce_dhead(x, head, targets, lse, dce) -> torch.Tensor:
     (``ce_dhead.launches``)."""
     if _on_cpu(x, "ce_dhead"):
         return ce_dhead_reference(x, head, targets, lse, dce)
-    w, tgt, (lse, dce) = _cuda_operands(x, head, targets, lse, dce)
-    n, d = x.shape
-    dw = torch.empty((w.shape[0], d), dtype=head.dtype, device=x.device)
-    if n:
-        _, fn = _functions()
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            _raise_on(fn(x.data_ptr(), x.stride(0), w.data_ptr(), w.stride(0),
-                         tgt.data_ptr(), lse.data_ptr(), dce.data_ptr(),
-                         dw.data_ptr(), dw.stride(0), n, w.shape[0], d,
-                         stream), "fused_ce_dhead")
-        ce_dhead.launches += 1
-    return dw.t()
+    return _ce_bwd("dhead", x, head, targets, lse, dce).t()
 
 
 ce_forward.launches = 0

@@ -138,3 +138,44 @@ def test_forward_kernel_at_every_width(card, d, n, v):
     outside = (tgt < 0) | (tgt >= v)
     assert outside.any()
     torch.testing.assert_close(ce[outside], lse[outside], atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,v", [(1000, 1088), (128, 64), (333, 2048)])
+@pytest.mark.parametrize("d", fce.KERNEL_D)
+def test_backward_kernels_at_every_width(card, d, n, v):
+    """K2 and K3 at every D they are built for, n not a multiple of their
+    64-row tiles (K2's last block and K3's last streamed tile ragged), V =
+    64 * odd, targets outside [0, V) among the rows."""
+    x, head, tgt, dce = _inputs(card, n, d, v)
+    _, lse = fce.ce_forward(x, head, tgt)
+    before = (fce.ce_dx.launches, fce.ce_dhead.launches)
+    dx = fce.ce_dx(x, head, tgt, lse, dce)
+    dhead = fce.ce_dhead(x, head, tgt, lse, dce)
+    torch.cuda.synchronize()
+    assert (fce.ce_dx.launches, fce.ce_dhead.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert dx.shape == x.shape and dhead.shape == head.shape
+    _assert_grad_close(dx, fce.ce_dx_reference(x, head, tgt, lse, dce), "dx")
+    _assert_grad_close(dhead, fce.ce_dhead_reference(x, head, tgt, lse, dce),
+                       "dhead")
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,v,strided", [
+    (1000, 512, 1088, False), (4096, 512, 8192, True), (333, 256, 2048, False),
+])
+def test_backward_kernels_are_deterministic(card, n, d, v, strided):
+    """Two launches of K2 and of K3 on the same inputs give the same bits:
+    each output element is summed in a fixed order by one block."""
+    x, head, tgt, dce = _inputs(card, n, d, v, strided)
+    _, lse = fce.ce_forward(x, head, tgt)
+    for fn in (fce.ce_dx, fce.ce_dhead):
+        first = fn(x, head, tgt, lse, dce)
+        again = fn(x, head, tgt, lse, dce)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(first), _bits(again)), fn.__name__
