@@ -76,7 +76,31 @@ Phases, each of which asserts (none catches its own failure):
                phases 5, 6, 7 and 8 (the balanced run's after its balance
                steps); each output must equal the plain version's bit for
                bit.
-11. timings -- CUDA-event medians of each kernel, its plain version and
+11. swarm    -- ``swarm-ffn4-h1024`` ([BJ] config 2): a port expert
+               server on the card (4 ``ffn`` experts at hidden 1024, the
+               port of ``optax.adam(1e-3)``, max batch 1024, warmed up)
+               behind loopback RPC, and the port's
+               ``RemoteMixtureOfExperts`` (grid (4,), top-2, k_min 1)
+               with gate params and 256 x 1024 f32 inputs on the card.
+               First, against a CPU copy of the same server and client on
+               the same weights, SWARM_CHECK_STEPS steps from a fresh
+               state, every reply awaited: one forward's output and one
+               backward's x and gate gradients, and the experts' params
+               after the steps (at the tight limit where every step's
+               gradient is well above the two sides' difference, since
+               adam's first step is ~lr * sign(g)).  Then, from the fresh
+               state again, the main path: SWARM_TRAIN_STEPS steps of a
+               fixed synthetic regression (gate trained by the client's
+               adam) must lower the loss, SWARM_LATENCY_CALLS more are the
+               timed window, and update_count must equal the backward
+               RPCs; a span breakdown and the card's busy share under
+               ``torch.profiler``; one step over the bf16 wire within
+               bf16's tolerance of the f32 wire's.  Prints the forward
+               and backward latency (p50, p95), rows/s, the Runtime's
+               queue/stack/device/materialize time per job and the
+               params' device.  No kernel of the kernels line is on this
+               path (0 launches).
+12. timings -- CUDA-event medians of each kernel, its plain version and
                the PyTorch call computing the same function (SDPA for the
                attention forward; for K1-K3, the attention backward and
                K4, which no single call computes, a yardstick: the cuBLAS
@@ -92,7 +116,7 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 without the repository's package beside it.
 
 ``python3 chip_smoke.py --kernels-only [flash|ce]`` runs phases 1-3 and
-phase 11's timings of K5 and K1-K3 (or of one family; no model path, no
+phase 12's timings of K5 and K1-K3 (or of one family; no model path, no
 kernels line): a kernel change's quick check and its times.
 """
 
@@ -113,7 +137,11 @@ import time
 
 import torch
 
+from learning_at_home_tpu_torch import optim
 from learning_at_home_tpu_torch import random as prng
+from learning_at_home_tpu_torch.client.moe import RemoteMixtureOfExperts
+from learning_at_home_tpu_torch.client.routing import StaticExpertSource
+from learning_at_home_tpu_torch.client.rpc import reset_client_rpc
 from learning_at_home_tpu_torch.models.transformer import (
     DMoETransformerConfig,
     DMoETransformerLM,
@@ -125,6 +153,9 @@ from learning_at_home_tpu_torch.ops import moe_dispatch
 from learning_at_home_tpu_torch.ops import token_dispatch as td
 from learning_at_home_tpu_torch.ops.fused_adafactor import fused_adafactor
 from learning_at_home_tpu_torch.parallel import sharded_moe
+from learning_at_home_tpu_torch.server.server import Server
+from learning_at_home_tpu_torch.utils.nested import nested_flatten
+from learning_at_home_tpu_torch.utils.profiling import timeline
 from learning_at_home_tpu_torch.tree import tree_leaves, tree_map
 
 SEED = 0
@@ -170,6 +201,32 @@ TRAINING = {
 }
 TRAIN_STEPS = 5
 SHORT_STEPS = 3  # the expert-choice and "dots" runs
+# [BJ] config 2 at its published width: 4 ffn experts at hidden 1024 (the
+# width of Server.create's default and of [BJ] config 1) behind one
+# server, optax.adam(1e-3)'s port, max batch 1024; the client's grid (4,),
+# top-2, k_min 1, batches of 256 rows
+SWARM = dict(num_experts=4, expert_cls="ffn", hidden_dim=1024,
+             expert_prefix="swarm", max_batch_size=1024)
+SWARM_LR = 1e-3
+SWARM_ROWS = 256
+SWARM_CHECK_STEPS = 3
+SWARM_TRAIN_STEPS = 25
+SWARM_LATENCY_CALLS = 50
+SWARM_SPAN_STEPS, SWARM_PROFILE_STEPS = 10, 5  # the breakdown's steps
+SWARM_CHECK_GRACE_S = 120.0  # the card-against-CPU clients wait for all
+# card against the CPU copy, f32 with TF32 off: the CPU tests' bar at
+# hidden 16 (2e-5) scaled by sqrt(1024 / 16) = 8 for dot products 64x
+# longer, rounded up: |err| <= 2e-4 + 2e-4 |ref|.  After each check step
+# (both sides from one state): adam's moments within 1e-5 of each leaf's
+# largest value plus 1e-4 |ref| (the CPU tests' bar for the same state,
+# tests/test_torch_expert_backend.py); params within 1e-6 + 1e-5 |ref|
+# plus how far adam's step can carry a gradient difference
+# (check_swarm_step).  bf16 wire: 2^-9 relative rounding on each
+# crossing, held at 2^-6 of each tensor's largest magnitude.
+SWARM_TOL = 2e-4
+SWARM_PARAM_ATOL, SWARM_PARAM_RTOL = 1e-6, 1e-5
+SWARM_MOMENT_ATOL, SWARM_MOMENT_RTOL = 1e-5, 1e-4
+SWARM_BF16_ATOL_SCALE = 2.0 ** -6
 # the main paths' kernel shapes: [B,S,H,hd] of one flagship-8k prefill
 # layer and of one flagship-8k-train layer; [n, d, V] of each training
 # configuration's CE
@@ -990,6 +1047,311 @@ def dispatch_path(plans, counters, results) -> dict:
     return launches
 
 
+# ---- phase 11: the swarm expert server and client ----
+
+
+def swarm_client(endpoint, wire: str = "none",
+                 grace: float = 1.0) -> RemoteMixtureOfExperts:
+    """The phase's client.  ``wire`` pins the wire codec: "none" (f32) or
+    "bf16" (the adaptive default would pick bf16 or 8-bit codecs for a
+    pool whose exchanges look slow, as the CPU copy's do: a lossy wire
+    must be chosen, not stumbled into).  ``grace`` is its
+    ``timeout_after_k_min`` (the quorum's wait for stragglers once every
+    row has k_min replies)."""
+    uids = [f"{SWARM['expert_prefix']}.{i}"
+            for i in range(SWARM["num_experts"])]
+    return RemoteMixtureOfExperts(
+        in_features=SWARM["hidden_dim"], grid_size=(SWARM["num_experts"],),
+        uid_prefix=SWARM["expert_prefix"], k_best=2, k_min=1,
+        timeout_after_k_min=grace, wire_codec=wire,
+        wire_dtype="bfloat16" if wire == "bf16" else None,
+        source=StaticExpertSource({uid: endpoint for uid in uids}))
+
+
+def swarm_step(moe, gate, x, cot):
+    """One forward and backward through the MoE: ``(y, x grad, gate
+    grads)``; ``cot`` is d(loss)/dy."""
+    g = {k: v.detach().clone().requires_grad_(True) for k, v in gate.items()}
+    xg = x.detach().clone().requires_grad_(True)
+    y = moe(xg, g)
+    y.backward(cot)
+    return y.detach(), xg.grad, {k: v.grad for k, v in g.items()}
+
+
+def _close(got, want, what, atol, rtol) -> float:
+    got, want = got.detach().cpu().float(), want.detach().cpu().float()
+    if got.numel() == 0:
+        return 0.0
+    err = (got - want).abs()
+    bad = int((err > atol + rtol * want.abs()).sum())
+    assert torch.isfinite(got).all(), f"{what} is not finite"
+    assert bad == 0, f"{what}: {bad} elements outside tolerance " \
+                     f"(max err {float(err.max()):.3g})"
+    return float(err.max())
+
+
+def _moments(backend) -> tuple[list, list]:
+    state = backend.opt_state[0]
+    return ([m.detach().cpu().clone() for m in nested_flatten(state.mu)],
+            [v.detach().cpu().clone() for v in nested_flatten(state.nu)])
+
+
+def check_swarm_step(card_srv, cpu_srv, step: int) -> None:
+    """After one adam step that both sides took from the same state: each
+    expert's moments and params on the card against the CPU copy.  The
+    moments within SWARM_MOMENT_ATOL of each leaf's largest value plus
+    SWARM_MOMENT_RTOL |ref|.  Adam moves a param by ~lr whatever |g| is
+    (a first step is lr * sign(g)), so a gradient difference dg between
+    the sides moves it apart by up to ``lr * min(2, 2 |dg| / (sqrt(v) +
+    eps))``, dg read off the first moments (``mu = 0.9 mu_0 + 0.1 g``
+    from one mu_0): each param within that plus SWARM_PARAM_ATOL +
+    SWARM_PARAM_RTOL |ref|.  A failure names the leaf and its worst
+    element."""
+    for uid, card_b in card_srv.experts.items():
+        cpu_b = cpu_srv.experts[uid]
+        names = leaf_paths(cpu_b.params)
+        (mu_g, nu_g), (mu_c, nu_c) = _moments(card_b), _moments(cpu_b)
+        for what, got, want in (("mu", mu_g, mu_c), ("nu", nu_g, nu_c)):
+            for name, g, w in zip(names, got, want):
+                _close(g, w, f"step {step} {uid} {what} {name}",
+                       SWARM_MOMENT_ATOL * float(w.abs().max()),
+                       SWARM_MOMENT_RTOL)
+        corr = 1 - 0.999 ** int(cpu_b.opt_state[0].count)
+        n_tight = n_all = 0
+        ratio = 0.0
+        for name, pc, pg, mg, mc, v in zip(
+                names, nested_flatten(cpu_b.params),
+                nested_flatten(card_b.params), mu_g, mu_c, nu_c):
+            dg = (mg - mc).abs() / 0.1
+            bound = SWARM_LR * torch.clamp(
+                2 * dg / ((v / corr).sqrt() + 1e-8), max=2.0)
+            err = (pg.cpu() - pc).abs()
+            limit = SWARM_PARAM_ATOL + SWARM_PARAM_RTOL * pc.abs() + bound
+            bad = err > limit
+            if bad.any():
+                i = int(torch.argmax(torch.where(bad, err - limit, 0.0)))
+                raise AssertionError(
+                    f"step {step} {uid} {name}: {int(bad.sum())} params "
+                    f"outside their bounds; worst: card "
+                    f"{float(pg.flatten()[i]):.8g} cpu "
+                    f"{float(pc.flatten()[i]):.8g}, bound "
+                    f"{float(limit.flatten()[i]):.3g}")
+            ratio = max(ratio, float((err / limit).max()))
+            n_tight += int((bound <= SWARM_PARAM_ATOL).sum())
+            n_all += bound.numel()
+        print(f"  step {step} {uid}: moments and params match the cpu copy "
+              f"({n_tight / n_all:.4f} of the params held within "
+              f"{2 * SWARM_PARAM_ATOL:.0e} + {SWARM_PARAM_RTOL:.0e} |ref|; "
+              f"largest error / bound {ratio:.3f})")
+
+
+def swarm_breakdown(run, card: str) -> None:
+    """Where a swarm step's time goes, after the timed window: the spans
+    of SWARM_SPAN_STEPS steps with the timeline on (client, handler and
+    Runtime spans, p50 a step, summed over the 4 experts), and on the card
+    the kernels' summed time against the wall time of SWARM_PROFILE_STEPS
+    steps under ``torch.profiler`` (the busy share)."""
+    timeline.clear()
+    timeline.enable()
+    try:
+        run(SWARM_SPAN_STEPS)
+    finally:
+        timeline.disable()
+    totals = {}
+    for name, st in timeline.summary().items():
+        key = re.sub(r"\.swarm\.\d+\.", ".*.", name)
+        totals[key] = totals.get(key, 0.0) + st["total_ms"]
+    timeline.clear()
+    print(f"  spans, ms a step over {SWARM_SPAN_STEPS} steps: " + ", ".join(
+        f"{k} {v / SWARM_SPAN_STEPS:.3f}"
+        for k, v in sorted(totals.items(), key=lambda kv: -kv[1])))
+    if card != "cuda":
+        return
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(SWARM_PROFILE_STEPS)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda r: -r[1])
+    busy = sum(ms for _, ms, _ in rows)
+    print(f"  profiled {SWARM_PROFILE_STEPS} steps: kernels {busy:.3f} ms "
+          f"in {wall_ms:.3f} ms wall, busy share {busy / wall_ms:.4f}; top: "
+          + "; ".join(f"{name[:50]} {ms:.3f} ms x{n}"
+                      for name, ms, n in rows[:6]))
+
+
+def swarm(counters, card: str = "cuda") -> dict:
+    """Phase 11 (see the module docstring).  Returns the kernels' launch
+    counts of the phase's main path (the card server's run).  ``card``
+    names the device under test (a CPU rehearsal passes "cpu")."""
+    hidden, rows = SWARM["hidden_dim"], SWARM_ROWS
+    t_phase = time.perf_counter()
+    sync = torch.cuda.synchronize if card == "cuda" else (lambda: None)
+    gen = torch.Generator(device=card).manual_seed(SEED)
+    card_srv = Server.create(**SWARM, optimizer=optim.adam(SWARM_LR),
+                             warmup=True, seed=SEED, host="127.0.0.1",
+                             device=card)
+    cpu_srv = None
+    try:
+        cpu_srv = Server.create(**SWARM, optimizer=optim.adam(SWARM_LR),
+                                seed=SEED, host="127.0.0.1", device="cpu")
+        for uid, b in card_srv.experts.items():
+            devices = {t.device.type for t in tree_leaves(b.params)}
+            devices |= {t.device.type for t in tree_leaves(b.opt_state)}
+            assert devices == {card}, f"{uid} is not on {card}: {devices}"
+        leaf = nested_flatten(card_srv.experts["swarm.0"].params)[0]
+        print(f"params on {leaf.device}; "
+              f"{card_srv.experts['swarm.0'].get_info()['num_params']} a "
+              f"expert; warm buckets "
+              f"{sorted(card_srv.experts['swarm.0'].warm_buckets)}")
+        gate = swarm_client(card_srv.endpoint).init_gate_params(gen)
+        x = torch.randn((rows, hidden), generator=gen, device=card)
+        target = torch.tanh(
+            x @ torch.randn((hidden, hidden), generator=gen, device=card)
+            / math.sqrt(hidden))
+
+        # correctness: the card pair against a CPU copy of the server and
+        # client, SWARM_CHECK_STEPS steps, each from the same state on both
+        # sides (the CPU copy takes the card's state first: a param that
+        # adam moved apart in one step would move the next step's
+        # gradients apart too).  Both clients wait for every expert's
+        # reply: with k_min 1 the quorum drops a straggler after its
+        # grace, and the CPU experts' backward at hidden 1024 takes longer
+        # than the default 1 s, so the two would differ by its share
+        fresh = {uid: b.state_dict() for uid, b in card_srv.experts.items()}
+        check_moe = swarm_client(card_srv.endpoint, grace=SWARM_CHECK_GRACE_S)
+        cpu_moe = swarm_client(cpu_srv.endpoint, grace=SWARM_CHECK_GRACE_S)
+        gate_cpu = tree_to(gate, "cpu")
+        for step in range(1, SWARM_CHECK_STEPS + 1):
+            for uid, b in card_srv.experts.items():
+                cpu_srv.experts[uid].load_state_dict(b.state_dict())
+            cot = torch.randn((rows, hidden), generator=gen, device=card)
+            got = swarm_step(check_moe, gate, x, cot)
+            want = swarm_step(cpu_moe, gate_cpu, x.cpu(), cot.cpu())
+            assert check_moe.selection_log[-1] == cpu_moe.selection_log[-1]
+            errs = [_close(got[0], want[0], "y", SWARM_TOL, SWARM_TOL),
+                    _close(got[1], want[1], "x grad", SWARM_TOL, SWARM_TOL),
+                    _close(got[2]["w0"], want[2]["w0"], "gate grad",
+                           SWARM_TOL, SWARM_TOL)]
+            print(f"  step {step}, card against cpu: max |err| y "
+                  f"{errs[0]:.3g}, x grad {errs[1]:.3g}, gate grad "
+                  f"{errs[2]:.3g}")
+            for uid, b in card_srv.experts.items():
+                assert b.update_count == cpu_srv.experts[uid].update_count \
+                    == step, uid
+            check_swarm_step(card_srv, cpu_srv, step)
+        for moe in (check_moe, cpu_moe):
+            assert moe.samples_dropped == moe.backward_samples_dropped == 0
+            assert moe.backward_rpcs_ok == moe.backward_rpcs_sent
+            assert set(moe.codec_counts) == {"none"}, moe.codec_counts
+        # the main path starts from the fresh state
+        for uid, b in card_srv.experts.items():
+            b.load_state_dict(fresh[uid])
+        card_moe = swarm_client(card_srv.endpoint)
+
+        # training: a fixed regression, gate trained by the client's adam;
+        # the last SWARM_LATENCY_CALLS steps are the timed window
+        reset_counts(counters)
+        gate_opt = optim.adam(SWARM_LR)
+        opt = {"gate": gate, "state": gate_opt.init(gate)}
+        losses, fwd_s, bwd_s = [], [], []
+
+        def run(n, timed=False):
+            for _ in range(n):
+                g = {k: v.detach().requires_grad_(True)
+                     for k, v in opt["gate"].items()}
+                sync()
+                t0 = time.perf_counter()
+                y = card_moe(x, g)
+                loss = ((y - target) ** 2).mean()
+                sync()
+                t1 = time.perf_counter()
+                loss.backward()
+                sync()
+                t2 = time.perf_counter()
+                losses.append(float(loss.detach()))
+                if timed:
+                    fwd_s.append(t1 - t0)
+                    bwd_s.append(t2 - t1)
+                updates, opt["state"] = gate_opt.update(
+                    {k: v.grad for k, v in g.items()}, opt["state"],
+                    opt["gate"])
+                opt["gate"] = optim.apply_updates(
+                    {k: v.detach() for k, v in g.items()}, updates)
+
+        run(SWARM_TRAIN_STEPS)
+        rt0 = card_srv.runtime.stats()
+        run(SWARM_LATENCY_CALLS, timed=True)
+        rt1 = card_srv.runtime.stats()
+        counts = read_counts(counters)
+        print(f"  loss {losses[0]:.5f} -> {losses[SWARM_TRAIN_STEPS - 1]:.5f} "
+              f"in {SWARM_TRAIN_STEPS} steps, {losses[-1]:.5f} after "
+              f"{len(losses)}")
+        assert all(math.isfinite(v) for v in losses)
+        assert losses[SWARM_TRAIN_STEPS - 1] < losses[0], \
+            f"swarm loss did not fall: {losses[:SWARM_TRAIN_STEPS]}"
+        updates_total = sum(b.update_count for b in card_srv.experts.values())
+        assert updates_total == card_moe.backward_rpcs_sent == \
+            card_moe.backward_rpcs_ok, (updates_total,
+                                        card_moe.backward_rpcs_sent)
+        assert card_moe.samples_dropped == 0
+        assert set(card_moe.codec_counts) == {"none"}, card_moe.codec_counts
+        print(f"  update_count {updates_total} = backward RPCs "
+              f"{card_moe.backward_rpcs_sent}")
+
+        def pct(v, q):
+            return statistics.quantiles(v, n=100)[q - 1] * 1e3
+
+        jobs = rt1["jobs_processed"] - rt0["jobs_processed"]
+        per_job = {key: (rt1[key] - rt0[key]) / jobs for key in (
+            "queue_time_ms", "stack_time_ms", "device_time_ms",
+            "materialize_time_ms")}
+        total = sum(fwd_s) + sum(bwd_s)
+        print(f"swarm {SWARM_LATENCY_CALLS} calls, {rows} rows each: "
+              f"forward p50 {pct(fwd_s, 50):.3f} ms p95 {pct(fwd_s, 95):.3f} "
+              f"ms; backward p50 {pct(bwd_s, 50):.3f} ms p95 "
+              f"{pct(bwd_s, 95):.3f} ms; {rows * len(fwd_s) / total:.1f} "
+              f"rows/s forward+backward")
+        print(f"swarm runtime per job ({jobs} jobs, "
+              f"{rt1['jobs_overlapped'] - rt0['jobs_overlapped']} "
+              f"overlapped): " + ", ".join(
+                  f"{k[:-3]} {v:.4f} ms" for k, v in per_job.items()))
+        swarm_breakdown(run, card)
+        gate = opt["gate"]
+
+        # the bf16 wire: one step from a snapshot, against the f32 wire's
+        snap = {uid: b.state_dict() for uid, b in card_srv.experts.items()}
+        cot = torch.randn((rows, hidden), generator=gen, device=card)
+        ref = swarm_step(swarm_client(card_srv.endpoint,
+                                      grace=SWARM_CHECK_GRACE_S), gate, x, cot)
+        for uid, b in card_srv.experts.items():
+            b.load_state_dict(snap[uid])
+        bf16 = swarm_step(swarm_client(card_srv.endpoint, "bf16",
+                                       grace=SWARM_CHECK_GRACE_S),
+                          gate, x, cot)
+        for what, a, b in (("y", bf16[0], ref[0]),
+                           ("x grad", bf16[1], ref[1]),
+                           ("gate grad", bf16[2]["w0"], ref[2]["w0"])):
+            err = _close(a, b, f"bf16 wire {what}", SWARM_BF16_ATOL_SCALE
+                         * float(b.abs().max()), 0.0)
+            print(f"  bf16 wire {what}: max |err| {err:.3g} "
+                  f"(max |ref| {float(b.abs().max()):.3g})")
+        assert counts == read_counts(counters), "a kernel ran in phase 11"
+        print(f"swarm phase: {time.perf_counter() - t_phase:.1f} s")
+        return counts
+    finally:
+        card_srv.shutdown()
+        if cpu_srv is not None:
+            cpu_srv.shutdown()
+        reset_client_rpc()
+
+
 def time_dispatch(plans, results) -> None:
     """Timings of K4 on layer 0's plan of each path: kernel, plain
     version, ``index_select`` yardstick, bound from the plan's own fill.
@@ -1250,7 +1612,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", nargs="?", const="all",
                     choices=["all", *FAMILIES],
-                    help="phases 1-3 and the kernel timings of phase 11, of "
+                    help="phases 1-3 and the kernel timings of phase 12, of "
                          "all kernels or of one family")
     args = ap.parse_args()
     phase("device")
@@ -1305,6 +1667,10 @@ def main() -> int:
     phase("token dispatch on the flagship's plans")
     launches["dispatch_tokens_auto (flagship plans)"] = dispatch_path(
         plans, counters, results)
+
+    phase("swarm swarm-ffn4-h1024")
+    launches["swarm-ffn4-h1024 (forward/backward RPCs)"] = swarm(counters)
+    torch.cuda.empty_cache()
 
     phase("timings")
     time_kernels(gen, results)

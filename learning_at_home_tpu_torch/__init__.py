@@ -10,6 +10,12 @@ the fused softmax cross-entropy and the MoE token dispatch
 (``ops/flash_attention.py``, ``ops/fused_ce.py``,
 ``ops/token_dispatch.py``, ``csrc/``), the optimizers
 (``ops/fused_adafactor.py``, ``optim.py``) and a converter of parameters
-and optimizer state (``convert.py``).  Entry points run on the
-CUDA card unless given ``device="cpu"``.
+and optimizer state (``convert.py``).  The swarm tier's core: the expert
+zoo (``models/layers.py``), the expert server (``server/``: backends,
+task pools, the device runtime, the wire handler), its client
+(``client/``: ``RemoteExpert``, ``RemoteMixtureOfExperts``) and their
+framework-free utilities (``utils/``: the wire, nests, checkpoints,
+metrics, tracing, the sanitizer), speaking the JAX package's wire byte
+for byte.  Entry points run on the CUDA card unless given
+``device="cpu"``.
 """

@@ -12,6 +12,12 @@ for bit, bfloat16 included.
 :func:`opt_state_from_jax` and :func:`opt_state_to_jax` do the same for
 optimizer state: the fused Adafactor's ``(count, v_row, v_col, v)`` and
 ``optax.adamw``'s ``(count, mu, nu)``, so training carries across.
+
+:func:`expert_from_jax` and :func:`expert_to_jax` carry one swarm
+expert's parameters (flax's ``{"params": ...}`` tree, ``models/layers.py``)
+and its ``optax.adam`` or ``optax.sgd`` state across, as numpy arrays.
+:func:`tensor_to_numpy` and :func:`numpy_to_tensor` are the one-array
+crossings they, the server and the swarm client share.
 """
 
 from __future__ import annotations
@@ -24,7 +30,12 @@ from learning_at_home_tpu_torch.ops.fused_adafactor import (
     FusedAdafactorState,
     state_shapes,
 )
-from learning_at_home_tpu_torch.optim import AdamWState
+from learning_at_home_tpu_torch.optim import (
+    AdamWState,
+    EmptyState,
+    ScaleByAdamState,
+)
+from learning_at_home_tpu_torch.tree import tree_map
 
 
 def param_shapes(cfg) -> dict:
@@ -60,22 +71,48 @@ def param_shapes(cfg) -> dict:
     return shapes
 
 
-def _to_tensor(arr, device: torch.device) -> torch.Tensor:
+def numpy_to_tensor(arr, device, non_blocking: bool = False
+                    ) -> torch.Tensor:
+    """A host array as a tensor on ``device``, sharing its memory where
+    the device is the CPU (a read-only array is copied first: torch
+    tensors are writable).  bfloat16 (ml_dtypes) moves as its bits."""
     arr = np.asarray(arr)
-    if arr.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: move the bits
-        t = torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
+    if not arr.flags.writeable or not arr.flags.c_contiguous:
+        arr = np.array(arr, copy=True, order="C")
+    if arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
     else:
-        t = torch.from_numpy(np.array(arr, copy=True))
-    return t.to(device)
+        t = torch.from_numpy(arr)
+    return t.to(device, non_blocking=non_blocking)
 
 
-def _to_numpy(t: torch.Tensor) -> np.ndarray:
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor on the host as numpy: ``.cpu()`` (which waits for a card
+    tensor's producers), sharing the memory of a CPU tensor; bfloat16 as
+    ml_dtypes' bfloat16."""
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         import ml_dtypes
 
         return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
-    return t.numpy().copy()
+    return t.numpy()
+
+
+def numpy_dtype(dtype: torch.dtype) -> np.dtype:
+    """The numpy dtype of a torch dtype (bfloat16: ml_dtypes')."""
+    if dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return np.dtype(ml_dtypes.bfloat16)
+    return torch.empty((), dtype=dtype).numpy().dtype
+
+
+def _to_tensor(arr, device: torch.device) -> torch.Tensor:
+    return numpy_to_tensor(np.array(np.asarray(arr), copy=True), device)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    return np.array(tensor_to_numpy(t), copy=True)
 
 
 def _convert(tree, shapes, path: str, leaf_fn):
@@ -181,3 +218,44 @@ def opt_state_to_jax(state, cfg) -> tuple:
                 _convert(state.mu, shapes, "mu", _to_numpy),
                 _convert(state.nu, shapes, "nu", _to_numpy))
     raise ValueError(f"not a port optimizer state: {type(state).__name__}")
+
+
+# ---- one swarm expert: params and its adam or sgd state ----
+
+_STATE_TYPES = {"ScaleByAdamState": ScaleByAdamState,
+                "EmptyState": EmptyState}
+
+
+def _state_from_jax(state, device):
+    """optax's state tree (numpy leaves) → the port's, optax's named
+    tuples by class name (``ScaleByAdamState``, ``EmptyState``)."""
+    if isinstance(state, dict):
+        return {k: _state_from_jax(v, device) for k, v in state.items()}
+    if isinstance(state, tuple) and hasattr(state, "_fields"):
+        cls = _STATE_TYPES.get(type(state).__name__)
+        if cls is None or cls._fields != state._fields:
+            raise ValueError(f"not an adam or sgd state: {type(state)!r}")
+        return cls(*(_state_from_jax(v, device) for v in state))
+    if isinstance(state, (tuple, list)):
+        return type(state)(_state_from_jax(v, device) for v in state)
+    return _to_tensor(state, device)
+
+
+def expert_from_jax(params, opt_state=None, device=None):
+    """One JAX expert's params (flax's tree, numpy or JAX leaves) and
+    optionally its ``optax.adam``/``optax.sgd`` state → the port's
+    ``(params, opt_state)`` on ``device`` (None: the CUDA card); bit for
+    bit.  ``opt_state`` None stays None."""
+    dev = resolve_device(device)
+    out = tree_map(lambda a: _to_tensor(a, dev), params)
+    state = None if opt_state is None else _state_from_jax(opt_state, dev)
+    return out, state
+
+
+def expert_to_jax(params, opt_state=None):
+    """The port's expert params and optimizer state → numpy trees of the
+    same structure (the state keeps the port's ``ScaleByAdamState`` and
+    ``EmptyState``, field for field optax's: ``optax.ScaleByAdamState(
+    *state[0])`` rebuilds optax's own)."""
+    out = tree_map(_to_numpy, params)
+    return out, (None if opt_state is None else tree_map(_to_numpy, opt_state))

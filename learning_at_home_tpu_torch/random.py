@@ -1,10 +1,11 @@
 """Counter-based random numbers, bit for bit those of ``jax.random``.
 
 The port's counterpart of the parts of ``jax.random`` that router jitter
-(``ops/moe_dispatch.py``) and sampled decoding (``models/transformer.py``
-``generate``) use: :func:`PRNGKey`, :func:`fold_in`, :func:`split`,
-:func:`random_bits`, :func:`uniform`, :func:`gumbel` and
-:func:`categorical`, for JAX's default generator
+(``ops/moe_dispatch.py``), sampled decoding (``models/transformer.py``
+``generate``) and the deterministic-dropout expert (``models/layers.py``)
+use: :func:`PRNGKey`, :func:`fold_in`, :func:`split`,
+:func:`random_bits`, :func:`uniform`, :func:`bernoulli`, :func:`gumbel`
+and :func:`categorical`, for JAX's default generator
 (``jax_default_prng_impl = "threefry2x32"``) with
 ``jax_threefry_partitionable = True``, the default of JAX 0.9.  With that
 flag, element ``i`` (the row-major index) of a ``random_bits`` draw is
@@ -12,7 +13,9 @@ flag, element ``i`` (the row-major index) of a ``random_bits`` draw is
 ``(i >> 32, i & 0xFFFFFFFF)`` under the key, so a draw does not depend on
 how it is split over devices.
 
-A key is an int64 tensor of shape [2] holding two uint32 words.  torch's
+A key is an int64 tensor of shape [2] holding two uint32 words; a stack
+of keys [*batch, 2] draws one array per key (``jax.vmap`` over keys),
+of shape [*batch, *shape].  torch's
 ``uint32`` lacks most operations on both the CPU and CUDA, so the words
 live in ``int64`` and every add and rotate is masked back to 32 bits:
 the same code gives the same bits on both devices.  Every draw runs on
@@ -55,8 +58,13 @@ def threefry2x32(key: torch.Tensor, x0: torch.Tensor,
                  x1: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """The Threefry-2x32 hash of the counter words ``(x0, x1)`` (int64
     tensors of one shape, values in [0, 2^32)) under ``key``; returns the
-    two output words, int64 in [0, 2^32)."""
-    k0, k1 = (int(w) for w in key.tolist())
+    two output words, int64 in [0, 2^32).  A stack of keys [*batch, 2]
+    hashes the counters under each key: outputs [*batch, *x0.shape]."""
+    if key.dim() == 1:
+        k0, k1 = (int(w) for w in key.tolist())
+    else:  # one word per key, broadcast over the counters' dims
+        lead = (...,) + (None,) * x0.dim()
+        k0, k1 = key[..., 0][lead], key[..., 1][lead]
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
     x0 = (x0 + ks[0]) & _MASK
     x1 = (x1 + ks[1]) & _MASK
@@ -69,9 +77,13 @@ def threefry2x32(key: torch.Tensor, x0: torch.Tensor,
     return x0, x1
 
 
-def PRNGKey(seed: int, device=None) -> torch.Tensor:  # noqa: N802 (JAX's name)
+def PRNGKey(seed, device=None) -> torch.Tensor:  # noqa: N802 (JAX's name)
     """``jax.random.PRNGKey(seed)`` with 32-bit JAX integers: the words
-    ``(0, seed mod 2^32)``."""
+    ``(0, seed mod 2^32)``.  An integer tensor of seeds gives a stack of
+    keys [*seed.shape, 2] on its device (``jax.vmap(PRNGKey)``)."""
+    if isinstance(seed, torch.Tensor):
+        low = seed.to(torch.int64) & _MASK
+        return torch.stack([torch.zeros_like(low), low], dim=-1)
     return torch.tensor([0, int(seed) & _MASK], dtype=torch.int64,
                         device=device)
 
@@ -122,7 +134,7 @@ def random_bits(key: torch.Tensor, bit_width: int,
     shape = tuple(int(s) for s in shape)
     y0, y1 = _counters(key, shape)
     bits = (y0 ^ y1) & ((1 << bit_width) - 1)
-    return _as_signed(bits, bit_width).reshape(shape)
+    return _as_signed(bits, bit_width).reshape(*key.shape[:-1], *shape)
 
 
 def _as_signed(word: torch.Tensor, nbits: int) -> torch.Tensor:
@@ -160,6 +172,14 @@ def uniform(key: torch.Tensor, shape: tuple[int, ...],
     else:  # bf16: rounded after each operation, as torch does
         scaled = floats * (hi - lo) + lo
     return torch.maximum(lo, scaled)
+
+
+def bernoulli(key: torch.Tensor, p: float,
+              shape: tuple[int, ...]) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` for a Python float ``p``
+    (JAX's f32): ``uniform(key, shape) < p``, bool."""
+    return uniform(key, shape) < torch.tensor(p, dtype=torch.float32,
+                                              device=key.device)
 
 
 def gumbel(key: torch.Tensor, shape: tuple[int, ...],
