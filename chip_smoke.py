@@ -110,6 +110,35 @@ Phases, each of which asserts (none catches its own failure):
                of the same rows),
                each with its share of its bound (bound / time); and the
                router-jitter noise of one layer drawn without its cache.
+13. swarm LM -- ``swarm-dmoe-4l-256e-d512`` ([BJ] config 3 at the
+               config-3 width: d 512, 4 layers, 8 heads, seq 256, byte
+               vocabulary, grid (16, 16), top-2, every timeout and quorum
+               setting at the config's defaults) through the DHT: a
+               bootstrap DHT node here, one expert server process a layer
+               started through ``python -m learning_at_home_tpu_torch.server``
+               on the card (256 ``ffn`` experts at hidden 512 each, adam
+               3e-4, max batch 4096), and the trainer here on the card with
+               its own DHT node as the expert source.  All 1024 experts
+               must be alive in the DHT before a deadline; then warm-up
+               steps until the step time settles (SWARM_LM_SETTLE) and
+               SWARM_LM_TIMED timed steps of ``make_train_step``
+               (adamw 3e-4, 8 x 256 tokens of the synthetic corpus a
+               step), SWARM_LM_OVERLAP_STEPS steps of
+               ``make_overlapped_train_step`` in each schedule, and
+               SWARM_LM_PIPELINED_STEPS of ``PipelinedSwarmTrainer`` with
+               two workers.  The loss must fall; backward RPCs acked <= the
+               servers' summed update_count <= sent (their stats RPC); a
+               server process that exits fails the phase with its output.
+               Prints, beside the card's name and power limit, the step
+               time and tokens/s, layer 0's dispatch p50, the replies each
+               layer's quorum dropped, the trainer's and each server's
+               peak card memory and the trainer's busy share over
+               SWARM_LM_PROFILE_STEPS profiled steps.  Then card against
+               CPU: twin swarms of 2 layers, grid (4,), d 64 (server
+               processes and trainer on the card; the same on the CPU;
+               crc32-seeded experts) give step 1's loss and every trunk
+               and gate gradient within 2e-4 + 2e-4 |ref|.  No kernel of
+               the kernels line is on this path (0 launches).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA card or
@@ -118,13 +147,17 @@ without the repository's package beside it.
 ``python3 chip_smoke.py --kernels-only [flash|ce]`` runs phases 1-3 and
 phase 12's timings of K5 and K1-K3 (or of one family; no model path, no
 kernels line): a kernel change's quick check and its times.
+``python3 chip_smoke.py --swarm-lm-only`` runs phases 1 and 13 (no kernel
+is built, no kernels line).
 """
 
 from __future__ import annotations
 
 import argparse
+import asyncio
 import contextlib
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -135,16 +168,32 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 from learning_at_home_tpu_torch import optim
 from learning_at_home_tpu_torch import random as prng
 from learning_at_home_tpu_torch.client.moe import RemoteMixtureOfExperts
 from learning_at_home_tpu_torch.client.routing import StaticExpertSource
-from learning_at_home_tpu_torch.client.rpc import reset_client_rpc
+from learning_at_home_tpu_torch.client import PipelinedSwarmTrainer
+from learning_at_home_tpu_torch.client.rpc import (
+    client_loop,
+    pool_registry,
+    reset_client_rpc,
+)
+from learning_at_home_tpu_torch.dht import DHT
+from learning_at_home_tpu_torch.models.data import (
+    VOCAB_SIZE,
+    LMBatcher,
+    load_corpus,
+)
 from learning_at_home_tpu_torch.models.transformer import (
     DMoETransformerConfig,
     DMoETransformerLM,
+)
+from learning_at_home_tpu_torch.models.transformer_swarm import (
+    SwarmDMoETransformerLM,
+    SwarmTransformerConfig,
 )
 from learning_at_home_tpu_torch.ops import build
 from learning_at_home_tpu_torch.ops import flash_attention as fa
@@ -227,6 +276,35 @@ SWARM_TOL = 2e-4
 SWARM_PARAM_ATOL, SWARM_PARAM_RTOL = 1e-6, 1e-5
 SWARM_MOMENT_ATOL, SWARM_MOMENT_RTOL = 1e-5, 1e-4
 SWARM_BF16_ATOL_SCALE = 2.0 ** -6
+# [BJ] config 3, the swarm DMoE-Transformer, at the repo's config-3 width
+# (__graft_entry__.py: d 512, 4 layers, 8 heads of 64, seq 256, top-2):
+# the byte vocabulary, the (16, 16) grid of the config's default (256 ffn
+# experts a layer, 1024 in all, hidden 512), every timeout and quorum
+# setting at the config's defaults; one server process a layer through
+# the port's CLI (adam 3e-4, max batch 4096), the trainer in this process
+# with adamw(3e-4) on 8 x 256 tokens of the synthetic corpus a step
+SWARM_LM = dict(vocab_size=VOCAB_SIZE, d_model=512, n_layers=4, n_heads=8,
+                seq_len=256, grid_size=(16, 16), k_best=2)
+SWARM_LM_BATCH = 8
+SWARM_LM_LR = 3e-4
+SWARM_LM_SERVER = ["--optimizer", "adam", "--lr", str(SWARM_LM_LR),
+                   "--max-batch-size", "4096", "--warmup"]
+SWARM_LM_TIMED, SWARM_LM_OVERLAP_STEPS = 5, 3
+# warm-up steps until the last 3 steps' times, and the experts they
+# called, each lie within 10 % of each other (at most 20 steps)
+SWARM_LM_SETTLE_STEPS, SWARM_LM_SETTLE, SWARM_LM_WARMUP_MAX = 3, 0.1, 20
+SWARM_LM_PIPELINED_STEPS, SWARM_LM_PROFILE_STEPS = 4, 2
+SWARM_LM_DISCOVERY_S = 300.0  # the deadline for all 1024 experts
+# card against the CPU at a small size: two twin swarms (server processes
+# and trainer on the card; the same on the CPU) of 2 layers, grid (4,),
+# d 64, f32 with TF32 off, the same crc32-seeded experts and trainer
+# params; every reply awaited and the wire pinned to f32, so step 1's loss
+# and gradients differ by summation order only: phase 11's bar
+SWARM_LM_TWIN = dict(vocab_size=VOCAB_SIZE, d_model=64, n_layers=2,
+                     n_heads=4, seq_len=32, grid_size=(4,), k_best=2,
+                     uid_prefix="twin", wire_codec="none",
+                     timeout_after_k_min=SWARM_CHECK_GRACE_S)
+SWARM_LM_TWIN_BATCH = 4
 # the main paths' kernel shapes: [B,S,H,hd] of one flagship-8k prefill
 # layer and of one flagship-8k-train layer; [n, d, V] of each training
 # configuration's CE
@@ -1352,6 +1430,406 @@ def swarm(counters, card: str = "cuda") -> dict:
         reset_client_rpc()
 
 
+# ---- phase 13: the swarm DMoE-Transformer through the DHT ----
+
+
+class SwarmServers:
+    """Expert server processes started through the port's CLI, each
+    writing its output to a log under ``build/swarm_logs``; :meth:`check`
+    fails the phase with a log's tail when a process has exited, and
+    :meth:`stop` ends them all (terminate, then kill).  The host's cores
+    are shared out among the ``n_procs`` processes (``OMP_NUM_THREADS``):
+    each draws its experts on the CPU, and four processes of torch's
+    default 8 threads on 8 cores took 12x longer than 2 threads each."""
+
+    def __init__(self, n_procs: int) -> None:
+        self.threads = str(max(1, (os.cpu_count() or 1) // n_procs))
+        self.root = os.path.dirname(os.path.abspath(__file__))
+        self.log_dir = os.path.join(self.root, "build", "swarm_logs")
+        os.makedirs(self.log_dir, exist_ok=True)
+        self.procs: list[tuple[str, subprocess.Popen, str]] = []
+
+    def start(self, name: str, uids: list, hidden: int, peer, device: str,
+              extra: list) -> None:
+        log = os.path.join(self.log_dir, f"{name}.log")
+        env = dict(os.environ, PYTHONPATH=self.root,
+                   OMP_NUM_THREADS=self.threads)
+        with open(log, "w") as out:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "learning_at_home_tpu_torch.server",
+                 "--expert-uids", ",".join(uids), "--hidden-dim", str(hidden),
+                 "--host", "127.0.0.1", "--initial-peers",
+                 f"{peer[0]}:{peer[1]}", "--device", device, *extra],
+                cwd=self.root, env=env, stdout=out, stderr=subprocess.STDOUT)
+        self.procs.append((name, proc, log))
+
+    def tail(self, log: str, n: int = 30) -> str:
+        with open(log, errors="replace") as f:
+            return "".join(f.readlines()[-n:])
+
+    def check(self) -> None:
+        for name, proc, log in self.procs:
+            if proc.poll() is not None:
+                raise AssertionError(
+                    f"server process {name} exited with {proc.returncode}; "
+                    f"its last output:\n{self.tail(log)}")
+
+    def stop(self) -> None:
+        for _, proc, _ in self.procs:
+            if proc.poll() is None:
+                proc.terminate()
+        for _, proc, _ in self.procs:
+            try:
+                proc.wait(timeout=20)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=20)
+
+
+def grid_uids(prefix: str, grid) -> list:
+    return [".".join([prefix, *map(str, c)])
+            for c in itertools.product(*(range(g) for g in grid))]
+
+
+def wait_for_experts(dht, servers: SwarmServers, prefixes, want: int,
+                     deadline_s: float) -> dict:
+    """uid -> endpoint of every expert alive under ``prefixes``, once all
+    ``want`` are visible through ``dht`` (fails at the deadline)."""
+    async def lookup():
+        found = await asyncio.gather(
+            *(dht.get_alive_experts_fresh(p) for p in prefixes))
+        return {uid: ep for alive in found for uid, ep in alive.items()}
+
+    t_end = time.perf_counter() + deadline_s
+    while True:
+        servers.check()
+        alive = client_loop().run(lookup())
+        if len(alive) >= want or time.perf_counter() > t_end:
+            break
+        time.sleep(0.5)
+    assert len(alive) >= want, f"{len(alive)} of {want} experts alive"
+    return alive
+
+
+def server_stats(endpoints) -> list:
+    """Each server's ``stats`` RPC reply (one RPC a server)."""
+    async def one(ep):
+        _, meta = await pool_registry().get(ep).rpc("stats", (), {},
+                                                    timeout=60.0)
+        return meta
+
+    async def gather():
+        return await asyncio.gather(*(one(ep) for ep in endpoints))
+
+    return client_loop().run(gather())
+
+
+RUNTIME_KEYS = ("jobs_processed", "queue_time_ms", "stack_time_ms",
+                "device_time_ms", "materialize_time_ms")
+
+
+def runtime_totals(endpoints) -> dict:
+    """The servers' Runtime counters (jobs, ms by stage), summed."""
+    out = dict.fromkeys(RUNTIME_KEYS, 0.0)
+    for st in server_stats(endpoints):
+        for key in RUNTIME_KEYS:
+            out[key] += float(st["runtime"][key])
+    return out
+
+
+def backward_ledger(model, endpoints) -> tuple:
+    """(backward RPCs acked, the servers' summed update_count, backward
+    RPCs sent) of the model's MoE layers."""
+    updates = sum(int(st["update_count_total"])
+                  for st in server_stats(endpoints))
+    return (sum(m.backward_rpcs_ok for m in model.moes), updates,
+            sum(m.backward_rpcs_sent for m in model.moes))
+
+
+def count_forward_replies(moe) -> dict:
+    """Counts the forward replies a MoE's fan-outs expected and the ones
+    its quorum dropped (a straggler past the grace or a failed RPC), by
+    wrapping its join-side finalizer; measurement only."""
+    counts = {"expected": 0, "dropped": 0}
+    finalize = moe._finalize_forward
+
+    def wrapped(results, **kwargs):
+        counts["expected"] += len(results)
+        counts["dropped"] += sum(1 for r in results.values() if r[-1] is None)
+        return finalize(results, **kwargs)
+
+    moe._finalize_forward = wrapped
+    return counts
+
+
+def swarm_lm_twins(card: str) -> None:
+    """Card against CPU: step 1's loss and every trunk and gate gradient of
+    the twin swarms (see SWARM_LM_TWIN), within SWARM_TOL + SWARM_TOL
+    |ref|."""
+    devices = ("cuda", "cpu")
+    cfg = SwarmTransformerConfig(**SWARM_LM_TWIN)
+    rs = np.random.RandomState(SEED)
+    shape = (SWARM_LM_TWIN_BATCH, cfg.seq_len)
+    ids = rs.randint(0, cfg.vocab_size, shape)
+    tgt = rs.randint(0, cfg.vocab_size, shape)
+    boots, servers = [], SwarmServers(len(devices) * cfg.n_layers)
+    try:
+        for i, dev in enumerate(devices):
+            boots.append(DHT())
+            for layer in range(cfg.n_layers):
+                servers.start(f"twin{i}-{dev}-{layer}",
+                              grid_uids(f"{cfg.uid_prefix}{layer}",
+                                        cfg.grid_size),
+                              cfg.d_model, boots[i].endpoint, dev,
+                              SWARM_LM_SERVER)
+        got = []
+        for dev, boot in zip(devices, boots):
+            dht = DHT(initial_peers=[boot.endpoint])
+            try:
+                wait_for_experts(dht, servers, [f"{cfg.uid_prefix}{i}" for i
+                                                in range(cfg.n_layers)],
+                                 cfg.n_layers * math.prod(cfg.grid_size), 120)
+                model = SwarmDMoETransformerLM(cfg, dht)
+                params = model.init_params(
+                    torch.Generator().manual_seed(SEED), device=dev)
+                loss, grads = optim.value_and_grad(model.loss_fn)(
+                    params, ids, tgt)
+                got.append((loss, grads,
+                            [m.selection_log[-1] for m in model.moes]))
+            finally:
+                dht.shutdown()
+        (loss_c, g_c, sel_c), (loss_h, g_h, sel_h) = got
+        assert sel_c == sel_h, "the twins chose other experts"
+        errs = [_close(loss_c, loss_h, "loss", SWARM_TOL, SWARM_TOL)]
+        for name, a, b in zip(leaf_paths(g_h), tree_leaves(g_c),
+                              tree_leaves(g_h)):
+            errs.append(_close(a, b, f"grad {name}", SWARM_TOL, SWARM_TOL))
+        print(f"  twins, card against cpu: loss {float(loss_c):.6f} vs "
+              f"{float(loss_h):.6f}; max |err| over loss and "
+              f"{len(errs) - 1} gradient leaves {max(errs):.3g} (bar "
+              f"{SWARM_TOL:.0e} + {SWARM_TOL:.0e} |ref|) [{card}]")
+    finally:
+        servers.stop()
+        for boot in boots:
+            boot.shutdown()
+        reset_client_rpc()
+
+
+def swarm_lm_busy(run, card: str):
+    """The trainer's card busy share over SWARM_LM_PROFILE_STEPS steps
+    under ``torch.profiler`` (the servers' card work is in their own
+    processes), with the kernels that take most of it; returns what
+    ``run`` returned."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        out = run()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda r: -r[1])
+    busy = sum(ms for _, ms, _ in rows)
+    print(f"  trainer's card busy {busy:.3f} ms of {wall_ms:.3f} ms wall over "
+          f"{SWARM_LM_PROFILE_STEPS} profiled steps, busy share "
+          f"{busy / wall_ms:.4f}; top: " + "; ".join(
+              f"{name[:50]} {ms:.3f} ms x{n}" for name, ms, n in rows[:6])
+          + f" [{card}]")
+    return out
+
+
+def swarm_lm(counters, card: str) -> dict:
+    """Phase 13 (see the module docstring).  Returns the kernels' launch
+    counts of its main path (the training steps)."""
+    t_phase = time.perf_counter()
+    cfg = SwarmTransformerConfig(**SWARM_LM)
+    n_experts = math.prod(cfg.grid_size)
+    prefixes = [f"{cfg.uid_prefix}{i}" for i in range(cfg.n_layers)]
+    boot = DHT()
+    servers = SwarmServers(len(prefixes))
+    dht = None
+    try:
+        for layer, prefix in enumerate(prefixes):
+            servers.start(f"layer{layer}", grid_uids(prefix, cfg.grid_size),
+                          cfg.d_model, boot.endpoint, "cuda",
+                          SWARM_LM_SERVER)
+        dht = DHT(initial_peers=[boot.endpoint])
+        t0 = time.perf_counter()
+        alive = wait_for_experts(dht, servers, prefixes,
+                                 cfg.n_layers * n_experts,
+                                 SWARM_LM_DISCOVERY_S)
+        endpoints = sorted(set(alive.values()))
+        print(f"  discovery: {len(alive)}/{cfg.n_layers * n_experts} experts "
+              f"alive through the DHT on {len(endpoints)} servers, "
+              f"{time.perf_counter() - t0:.1f} s after the trainer's DHT "
+              f"node joined ({time.perf_counter() - t_phase:.1f} s after "
+              f"the processes started) [{card}]")
+
+        model = SwarmDMoETransformerLM(cfg, dht)
+        replies = [count_forward_replies(m) for m in model.moes]
+        opt = optim.adamw(SWARM_LM_LR)
+        run = {"params": model.init_params(
+            torch.Generator().manual_seed(SEED), device="cuda")}
+        run["state"] = opt.init(run["params"])
+        batches = LMBatcher(load_corpus(seed=SEED), SWARM_LM_BATCH,
+                            cfg.seq_len, seed=SEED)
+        tokens = SWARM_LM_BATCH * cfg.seq_len
+
+        def steps(step_fn, n):
+            """Losses, seconds and experts called (summed over the layers'
+            last dispatches) of ``n`` steps."""
+            losses, times, called = [], [], []
+            for _ in range(n):
+                servers.check()
+                ids, tgt = next(batches)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                run["params"], run["state"], loss = step_fn(
+                    run["params"], run["state"], ids, tgt)
+                losses.append(float(loss))
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t)
+                called.append(sum(len(m.selection_log[-1])
+                                  for m in model.moes))
+            assert all(math.isfinite(v) for v in losses), losses
+            return losses, times, called
+
+        def settled(*series):
+            return all(
+                len(v) >= SWARM_LM_SETTLE_STEPS and
+                max(v[-SWARM_LM_SETTLE_STEPS:])
+                <= (1 + SWARM_LM_SETTLE) * min(v[-SWARM_LM_SETTLE_STEPS:])
+                for v in series)
+
+        reset_counts(counters)
+        torch.cuda.reset_peak_memory_stats()
+        step = model.make_train_step(opt)
+        rtw = runtime_totals(endpoints)
+        warm, warm_t, warm_n = steps(step, 1)
+        rt_first = runtime_totals(endpoints)
+        print(f"  first warm-up step {warm_t[0]:.3f} s; its forward "
+              f"dispatches by layer: " + ", ".join(
+                  f"{m.dispatch_times[0]:.3f}" for m in model.moes)
+              + f" s; the servers' Runtime: "
+              f"{rt_first['jobs_processed'] - rtw['jobs_processed']:.0f} "
+              f"jobs, device "
+              f"{(rt_first['device_time_ms'] - rtw['device_time_ms']) / 1e3:.3f}"
+              f" s (summed over servers)")
+        # a step's time follows the experts it calls (each costs its
+        # server a forward and a backward job), and the gate concentrates
+        # as it trains; first use slows the first steps too: warm up until
+        # the step's time and its experts called both hold still
+        while len(warm_t) < SWARM_LM_WARMUP_MAX and \
+                not settled(warm_t, warm_n):
+            more, more_t, more_n = steps(step, 1)
+            warm, warm_t, warm_n = warm + more, warm_t + more_t, warm_n + more_n
+        print(f"  warm-up: {len(warm_t)} steps, s (experts called): "
+              + ", ".join(f"{t:.3f} ({n})" for t, n in zip(warm_t, warm_n))
+              + ("; settled" if settled(warm_t, warm_n) else
+                 f"; not settled at the cap of {SWARM_LM_WARMUP_MAX}")
+              + f" [{card}]")
+        rt0, n0 = runtime_totals(endpoints), [len(m.dispatch_times)
+                                              for m in model.moes]
+        losses, times, called = steps(step, SWARM_LM_TIMED)
+        rt1 = runtime_totals(endpoints)
+        med = statistics.median(times)
+        print(f"  make_train_step: {SWARM_LM_TIMED} steps median {med:.3f} s "
+              f"({', '.join(f'{t:.3f}' for t in times)}), "
+              f"{tokens / med:.1f} tokens/s; experts called a step "
+              f"{', '.join(map(str, called))} of "
+              f"{cfg.n_layers * n_experts} [{card}]")
+        # where a timed step's wall goes: the trainer's waits on the forward
+        # fan-outs (fire to join, summed over layers), the rest (backward
+        # fan-outs and the trunk), and the servers' Runtime a step
+        fwd = sum(sum(list(m.dispatch_times)[n:])
+                  for m, n in zip(model.moes, n0)) / SWARM_LM_TIMED
+        jobs = (rt1["jobs_processed"] - rt0["jobs_processed"]) / SWARM_LM_TIMED
+        busy = {k: (rt1[k] - rt0[k]) / SWARM_LM_TIMED / 1e3
+                for k in RUNTIME_KEYS[1:]}
+        print(f"  a timed step: {statistics.mean(times):.3f} s mean = forward "
+              f"dispatch waits {fwd:.3f} s + backward fan-outs and trunk "
+              f"{statistics.mean(times) - fwd:.3f} s; the {len(endpoints)} "
+              f"servers ran "
+              f"{jobs:.0f} Runtime jobs a step: " + ", ".join(
+                  f"{k[:-8]} {v:.3f} s" for k, v in busy.items())
+              + f" (summed over servers) [{card}]")
+        for overlap in (True, False):
+            ol, ot, _ = steps(model.make_overlapped_train_step(
+                opt, overlap=overlap), SWARM_LM_OVERLAP_STEPS)
+            print(f"  make_overlapped_train_step(overlap={overlap}): "
+                  f"{SWARM_LM_OVERLAP_STEPS} steps median "
+                  f"{statistics.median(ot):.3f} s, "
+                  f"{tokens / statistics.median(ot):.1f} tokens/s; losses "
+                  f"{', '.join(f'{v:.4f}' for v in ol)} [{card}]")
+        # one trainer thread sends each expert one backward RPC a step: a
+        # straggler cancelled after the grace still updates its expert
+        # (train_lm.py), so acked <= the servers' updates <= sent
+        rpcs = backward_ledger(model, endpoints)
+        print(f"  backward RPCs acked {rpcs[0]} <= servers' update_count "
+              f"{rpcs[1]} <= sent {rpcs[2]} [{card}]")
+        assert 0 < rpcs[0] <= rpcs[1] <= rpcs[2], rpcs
+        trainer = PipelinedSwarmTrainer(model, opt, run["params"],
+                                        run["state"], n_workers=2)
+        summary = trainer.train(batches, steps=SWARM_LM_PIPELINED_STEPS,
+                                tokens_per_batch=tokens)
+        run["params"], run["state"], _ = trainer.snapshot()
+        print(f"  PipelinedSwarmTrainer(n_workers=2): "
+              f"{summary['steps']} steps in {summary['elapsed_s']:.3f} s, "
+              f"{summary['tokens_per_sec']:.1f} tokens/s; losses "
+              f"{', '.join(f'{v:.4f}' for v in trainer.losses)} [{card}]")
+        counts = read_counts(counters)
+        peak = torch.cuda.max_memory_allocated()
+        all_losses = warm + losses
+        print(f"  loss {all_losses[0]:.5f} -> {all_losses[-1]:.5f} over "
+              f"{len(all_losses)} make_train_step steps; last pipelined "
+              f"{trainer.losses[-1]:.5f} [{card}]")
+        assert statistics.mean(losses[-2:]) < warm[0], \
+            f"the swarm LM's loss did not fall: {all_losses}"
+        dispatch = sorted(model.moes[0].dispatch_times)
+        print(f"  layer 0 dispatch p50 "
+              f"{statistics.median(dispatch) * 1e3:.3f} ms over "
+              f"{len(dispatch)} forward dispatches [{card}]")
+        for i, (m, r) in enumerate(zip(model.moes, replies)):
+            print(f"  layer {i} quorum drops: forward {r['dropped']}/"
+                  f"{r['expected']} replies "
+                  f"({r['dropped'] / max(r['expected'], 1):.4f}), backward "
+                  f"{m.backward_rpcs_sent - m.backward_rpcs_ok}/"
+                  f"{m.backward_rpcs_sent} RPCs ("
+                  f"{1 - m.backward_rpcs_ok / max(m.backward_rpcs_sent, 1):.4f})"
+                  f"; samples dropped {m.samples_dropped} forward, "
+                  f"{m.backward_samples_dropped} backward; codecs "
+                  f"{dict(sorted(m.codec_counts.items()))} [{card}]")
+
+        _, prof_t, prof_n = swarm_lm_busy(
+            lambda: steps(step, SWARM_LM_PROFILE_STEPS), card)
+        print(f"  the profiled steps, s (experts called): " + ", ".join(
+            f"{t:.3f} ({n})" for t, n in zip(prof_t, prof_n)) + f" [{card}]")
+
+        # two workers' backward RPCs to one expert may share a batch (one
+        # update): then only updates <= sent holds
+        acked, updates, sent = (b - a for a, b in zip(
+            rpcs, backward_ledger(model, endpoints)))
+        print(f"  since then (the pipelined and profiled steps): acked "
+              f"{acked}, servers' updates {updates} <= sent {sent} [{card}]")
+        assert 0 < updates <= sent, (acked, updates, sent)
+        peaks = [st["metrics"]["collected"].get(
+            "lah_server_device_peak_bytes", 0) for st in server_stats(endpoints)]
+        print(f"  trainer peak card memory {peak / 1e9:.3f} GB; servers' "
+              f"peak {', '.join(f'{b / 1e9:.3f}' for b in peaks)} GB "
+              f"[{card}]")
+        servers.check()
+        print(f"swarm-lm phase: {time.perf_counter() - t_phase:.1f} s")
+        return counts
+    finally:
+        servers.stop()
+        if dht is not None:
+            dht.shutdown()
+        boot.shutdown()
+        reset_client_rpc()
+
+
 def time_dispatch(plans, results) -> None:
     """Timings of K4 on layer 0's plan of each path: kernel, plain
     version, ``index_select`` yardstick, bound from the plan's own fill.
@@ -1614,6 +2092,8 @@ def main() -> int:
                     choices=["all", *FAMILIES],
                     help="phases 1-3 and the kernel timings of phase 12, of "
                          "all kernels or of one family")
+    ap.add_argument("--swarm-lm-only", action="store_true",
+                    help="phases 1 and 13 only (no kernel is built)")
     args = ap.parse_args()
     phase("device")
     if not torch.cuda.is_available():
@@ -1631,6 +2111,12 @@ def main() -> int:
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}")
+    if args.swarm_lm_only:
+        phase("swarm LM swarm-dmoe-4l-256e-d512")
+        swarm_lm(counters, card)
+        swarm_lm_twins(card)
+        print(card)
+        return 0
 
     phase("build")
     t0 = time.perf_counter()
@@ -1676,6 +2162,11 @@ def main() -> int:
     time_kernels(gen, results)
     time_dispatch(plans, results)
     time_jitter_noise()
+
+    phase("swarm LM swarm-dmoe-4l-256e-d512")
+    launches["swarm-dmoe-4l-256e-d512 (train steps)"] = swarm_lm(counters,
+                                                                  card)
+    swarm_lm_twins(card)
 
     kernels = []
     for name, (source, replaces, shape) in KERNELS.items():

@@ -13,6 +13,10 @@ for bit, bfloat16 included.
 optimizer state: the fused Adafactor's ``(count, v_row, v_col, v)`` and
 ``optax.adamw``'s ``(count, mu, nu)``, so training carries across.
 
+:func:`swarm_params_from_jax` and :func:`swarm_params_to_jax` do it for
+the swarm DMoE-Transformer's trunk and gates (``models/
+transformer_swarm.py``; its experts live on the servers).
+
 :func:`expert_from_jax` and :func:`expert_to_jax` carry one swarm
 expert's parameters (flax's ``{"params": ...}`` tree, ``models/layers.py``)
 and its ``optax.adam`` or ``optax.sgd`` state across, as numpy arrays.
@@ -152,6 +156,40 @@ def params_to_jax(params, cfg):
     """The port's tree of tensors → the JAX package's layout as numpy
     arrays (``jax.device_put`` or ``jnp.asarray`` makes it a JAX tree)."""
     return _convert(params, param_shapes(cfg), "", _to_numpy)
+
+
+def swarm_param_shapes(cfg) -> dict:
+    """The tree of leaf shapes a swarm DMoE-Transformer of ``cfg`` (the
+    port's or the JAX package's ``SwarmTransformerConfig``) takes."""
+    d, v, s = cfg.d_model, cfg.vocab_size, cfg.seq_len
+
+    def ln():
+        return {"scale": (d,), "bias": (d,)}
+
+    layer = {
+        "ln1": ln(), "wq": (d, d), "wk": (d, d), "wv": (d, d), "wo": (d, d),
+        "ln2": ln(),
+        "gate": {f"w{i}": (d, g) for i, g in enumerate(cfg.grid_size)},
+    }
+    return {"embed": (v, d), "pos": (s, d), "ln_f": ln(),
+            "layers": tuple(dict(layer) for _ in range(cfg.n_layers))}
+
+
+def swarm_params_from_jax(tree, cfg, device=None) -> dict:
+    """The JAX swarm model's param tree (numpy arrays) → the port's, on
+    ``device`` (None: the CUDA card); ``layers`` is a list as in JAX."""
+    dev = resolve_device(device)
+    out = _convert(tree, swarm_param_shapes(cfg), "",
+                   lambda arr: _to_tensor(arr, dev))
+    out["layers"] = list(out["layers"])
+    return out
+
+
+def swarm_params_to_jax(params, cfg) -> dict:
+    """The port's swarm params → the JAX package's tree as numpy arrays."""
+    out = _convert(params, swarm_param_shapes(cfg), "", _to_numpy)
+    out["layers"] = list(out["layers"])
+    return out
 
 
 def _map_shapes(fn, shapes):

@@ -28,7 +28,7 @@ from learning_at_home_tpu_torch.ops.fused_adafactor import (
     NO_PARAMS_MSG,
     safe_increment,
 )
-from learning_at_home_tpu_torch.tree import tree_leaves, tree_map
+from learning_at_home_tpu_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
 class AdamWState(NamedTuple):
@@ -146,3 +146,25 @@ def apply_updates(params, updates):
     ``(p + u)`` cast to p's dtype.  Returns ``params``."""
     tree_map(lambda p, u: p.copy_((p + u).to(p.dtype)), params, updates)
     return params
+
+
+@torch.no_grad()
+def applied_updates(params, updates):
+    """``optax.apply_updates`` out of place: a NEW tree of ``(p + u)``
+    cast to p's dtype, so a reference to the old tree (a pipelined
+    trainer's snapshot, autograd's saved tensors) keeps its values."""
+    return tree_map(lambda p, u: (p + u).to(p.dtype), params, updates)
+
+
+def value_and_grad(loss: Callable) -> Callable:
+    """``jax.value_and_grad`` for a ``loss(params, *args)`` of a tree of
+    tensors: ``(value, grads)``, the value detached and the grads a tree
+    like params, by autograd from fresh leaves (params are not touched)."""
+
+    def fn(params, *args):
+        p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        value = loss(p, *args)
+        grads = torch.autograd.grad(value, tree_leaves(p))
+        return value.detach(), tree_unflatten(params, grads)
+
+    return fn

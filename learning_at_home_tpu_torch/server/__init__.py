@@ -1,5 +1,7 @@
 """The swarm expert server of the port: experts, their batching, the
-device runtime and the wire handler (the JAX package's ``server/``)."""
+device runtime, the wire handler and the DHT heartbeat (the JAX
+package's ``server/``; ``python -m learning_at_home_tpu_torch.server`` is
+its CLI)."""
 
 from learning_at_home_tpu_torch.server.chaos import ChaosConfig, ChaosInjector
 from learning_at_home_tpu_torch.server.expert_backend import ExpertBackend

@@ -1,0 +1,236 @@
+"""Standalone expert server CLI of the port — the counterpart of
+``python -m learning_at_home_tpu.server``: start a peer hosting N experts,
+join the DHT swarm, declare and heartbeat, serve until interrupted.
+
+    python -m learning_at_home_tpu_torch.server \\
+        --num-experts 4 --expert-cls ffn --hidden-dim 1024 \\
+        --expert-prefix ffn --port 31337 \\
+        --initial-peers 10.0.0.1:31338 \\
+        --checkpoint-dir ./ckpt --checkpoint-every 300
+
+The experts run on the CUDA card unless ``--device cpu`` is given (the
+port's counterpart of ``JAX_PLATFORMS``); without a card the server exits
+with an error rather than falling back to the CPU.  The JAX package's
+graceful drain (``--drain-*``) and native transport are not ported: those
+flags exit with an error.
+"""
+
+from __future__ import annotations
+
+import argparse
+import signal
+import threading
+
+NOT_PORTED = "is not ported to learning_at_home_tpu_torch yet"
+
+
+def parse_endpoint(s: str) -> tuple[str, int]:
+    host, sep, port = s.rpartition(":")
+    if not sep or not port.isdigit():
+        raise SystemExit(
+            f"--initial-peers entry {s!r} must be host:port (e.g. 10.0.0.1:31337)"
+        )
+    return (host, int(port))
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--num-experts", type=int, default=4)
+    p.add_argument("--expert-cls", default="ffn",
+                   choices=["ffn", "transformer", "swiglu", "nop"])
+    p.add_argument("--hidden-dim", type=int, default=1024)
+    p.add_argument("--expert-prefix", default="expert")
+    p.add_argument("--expert-offset", type=int, default=0,
+                   help="first expert index (partition a grid across servers)")
+    p.add_argument("--expert-uids", default=None,
+                   help="comma-separated explicit uid list (e.g. "
+                        "'ffn0.1,ffn1.3'); overrides prefix/offset/num; "
+                        "params seeded stably per uid")
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=0)
+    p.add_argument("--dht-port", type=int, default=0)
+    p.add_argument("--initial-peers", nargs="*", default=[],
+                   help="host:port of existing DHT peers")
+    p.add_argument("--no-dht", action="store_true")
+    p.add_argument("--update-period", type=float, default=15.0)
+    p.add_argument("--max-batch-size", type=int, default=1024)
+    p.add_argument("--optimizer", default="adam", choices=["adam", "sgd", "adamw"])
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--checkpoint-every", type=float, default=0.0,
+                   help="seconds between checkpoints (0 = only on shutdown)")
+    p.add_argument("--checkpoint-keep-last", type=int, default=3,
+                   help="complete checkpoint steps to retain (older ones "
+                        "and crashed half-saves are pruned)")
+    p.add_argument("--resume", action="store_true",
+                   help="load the latest checkpoint before serving")
+    p.add_argument("--drain-on-term", action="store_true",
+                   help=f"graceful drain on SIGTERM: {NOT_PORTED}")
+    p.add_argument("--drain-grace", type=float, default=None,
+                   help=f"drain grace period: {NOT_PORTED}")
+    p.add_argument("--drain-successor", default=None,
+                   help=f"drain migration target: {NOT_PORTED}")
+    p.add_argument("--warmup", type=int, nargs="*", default=None,
+                   help="record fwd/bwd batch buckets before serving (e.g. "
+                        "--warmup 64 256 1024); no value = all power-of-2 "
+                        "buckets")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--telemetry-prefix", default="swarm",
+                   help="DHT scope the metrics endpoint is advertised "
+                        "under (telemetry.<prefix>)")
+    p.add_argument("--transport", default="asyncio",
+                   choices=["asyncio", "native"],
+                   help="data plane: the asyncio loop (the native frame "
+                        f"pump {NOT_PORTED})")
+    p.add_argument("--chaos-latency", type=float, default=0.0,
+                   help="inject WAN-like base latency (seconds) per request")
+    p.add_argument("--chaos-jitter", type=float, default=0.0)
+    p.add_argument("--chaos-straggler-prob", type=float, default=0.0)
+    p.add_argument("--chaos-straggler-delay", type=float, default=1.5)
+    p.add_argument("--chaos-bandwidth", type=float, default=0.0,
+                   help="emulated link bandwidth in bytes/sec (0 = "
+                        "unlimited); each reply delayed by payload/bw")
+    p.add_argument("--device", default=None,
+                   help="torch device of the experts (default: the CUDA "
+                        "card; 'cpu' to run on the CPU)")
+    return p
+
+
+def refuse_unported(p: argparse.ArgumentParser, args) -> None:
+    """Exit with an error for the JAX CLI's flags whose machinery the port
+    does not have yet, rather than silently ignoring them."""
+    if args.drain_on_term or args.drain_grace is not None \
+            or args.drain_successor is not None:
+        p.error(f"graceful drain (--drain-on-term, --drain-grace, "
+                f"--drain-successor) {NOT_PORTED}")
+    if args.transport == "native":
+        p.error(f"--transport native (the C++ frame pump) {NOT_PORTED}")
+
+
+def main(argv=None) -> None:
+    p = build_parser()
+    args = p.parse_args(argv)
+    refuse_unported(p, args)
+
+    import logging
+
+    logging.basicConfig(
+        level=logging.INFO, format="%(asctime)s %(name)s: %(message)s"
+    )
+
+    from learning_at_home_tpu_torch import optim
+    from learning_at_home_tpu_torch.device import resolve_device
+    from learning_at_home_tpu_torch.dht import DHT
+    from learning_at_home_tpu_torch.server import ChaosConfig, Server
+
+    device = resolve_device(args.device)  # raises without a card
+    optimizer = {
+        "adam": optim.adam,
+        "adamw": optim.adamw,
+        "sgd": optim.sgd,
+    }[args.optimizer](args.lr)
+
+    dht = None
+    if not args.no_dht:
+        dht = DHT(
+            initial_peers=[parse_endpoint(s) for s in args.initial_peers],
+            port=args.dht_port,
+        )
+        print(f"DHT node at {dht.endpoint}", flush=True)
+
+    if args.warmup is not None:
+        # True = all power-of-two buckets; a list = exactly those sizes
+        warmup = args.warmup if args.warmup else True
+    else:
+        warmup = False
+    expert_uids = None
+    if args.expert_uids is not None:
+        expert_uids = [u.strip() for u in args.expert_uids.split(",") if u.strip()]
+        if not expert_uids:
+            raise SystemExit("--expert-uids given but empty")
+    chaos = None
+    if args.chaos_latency or args.chaos_jitter or args.chaos_straggler_prob \
+            or args.chaos_bandwidth:
+        chaos = ChaosConfig(
+            base_latency=args.chaos_latency,
+            jitter=args.chaos_jitter,
+            straggler_prob=args.chaos_straggler_prob,
+            straggler_delay=args.chaos_straggler_delay,
+            bandwidth_bps=args.chaos_bandwidth,
+            seed=args.seed,
+        )
+    server = Server.create(
+        num_experts=args.num_experts,
+        expert_cls=args.expert_cls,
+        hidden_dim=args.hidden_dim,
+        expert_prefix=args.expert_prefix,
+        expert_offset=args.expert_offset,
+        expert_uids=expert_uids,
+        optimizer=optimizer,
+        max_batch_size=args.max_batch_size,
+        warmup=warmup,
+        seed=args.seed,
+        start=False,
+        device=device,
+        host=args.host,
+        port=args.port,
+        dht=dht,
+        update_period=args.update_period,
+        telemetry_prefix=args.telemetry_prefix,
+        chaos=chaos,
+    )
+    experts = server.experts
+    server.run_in_background()
+    ckpt_mgr = None
+    if args.checkpoint_dir:
+        from learning_at_home_tpu_torch.utils.checkpoint import CheckpointManager
+
+        ckpt_mgr = CheckpointManager(
+            args.checkpoint_dir, keep_last=args.checkpoint_keep_last
+        )
+    if args.resume and ckpt_mgr is not None:
+        try:
+            step = server.load_checkpoint(args.checkpoint_dir)
+            server.restarts = ckpt_mgr.record_restart()
+            print(f"resumed from checkpoint step {step} "
+                  f"(restart #{server.restarts})", flush=True)
+        except FileNotFoundError:
+            print("no checkpoint found; starting fresh", flush=True)
+    if ckpt_mgr is not None and args.checkpoint_every > 0:
+        ckpt_mgr.start_periodic(
+            lambda step: server.save_checkpoint(args.checkpoint_dir, step),
+            args.checkpoint_every,
+        )
+    span = (f"({sorted(experts)[0]}..{sorted(experts)[-1]}) "
+            if experts else "")
+    print(
+        f"serving {len(experts)} {args.expert_cls!r} experts {span}on "
+        f"{server.endpoint[0]}:{server.endpoint[1]} ({device}; metrics "
+        f"http://{server.endpoint[0]}:{server.metrics_port}/metrics)",
+        flush=True,
+    )
+
+    stop = threading.Event()
+    signal.signal(signal.SIGINT, lambda *_: stop.set())
+    signal.signal(signal.SIGTERM, lambda *_: stop.set())
+    while not stop.wait(timeout=0.5):
+        pass
+    if ckpt_mgr is not None:
+        # stop the periodic thread first: racing it on next_step() could
+        # mark a torn two-writer snapshot complete
+        ckpt_mgr.stop()
+        step = ckpt_mgr.save_now(
+            lambda s: server.save_checkpoint(args.checkpoint_dir, s)
+        )
+        if step is None:
+            print("final checkpoint FAILED (see log)", flush=True)
+        else:
+            print(f"final checkpoint saved @ step {step}", flush=True)
+    server.shutdown()
+    if dht is not None:
+        dht.shutdown()
+    print("server shut down", flush=True)
+
+
+if __name__ == "__main__":
+    main()

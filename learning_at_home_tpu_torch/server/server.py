@@ -2,19 +2,24 @@
 
 The port of ``learning_at_home_tpu/server/server.py``: N ExpertBackends
 on one device behind the framed tensor RPC protocol (the JAX package's
-wire, byte for byte), a metrics endpoint, checkpoints.  Three execution
-domains in one process:
+wire, byte for byte), a metrics endpoint, checkpoints, and — given a
+``dht`` — the liveness heartbeat that re-declares the experts every
+``update_period`` with TTL ``2 × update_period`` (record expiry is the
+swarm's failure detector), bundled with the ``telemetry.``, ``load.``,
+``links.`` and ``replicas.wanted.`` records.  Three execution domains in
+one process:
 
 - **event loop** (BackgroundLoop thread ``lah-server``): TCP accept, RPC
-  parse, task pools — all non-blocking;
+  parse, task pools, DHT client calls — all non-blocking;
 - **Runtime thread** (``lah-runtime``): the single device consumer
   launching expert kernels (torch releases the GIL inside them);
 - **main thread**: owns lifecycle (start/shutdown), free for user code.
 
-Not in the port yet (the DHT's slice): the DHT heartbeat, the native
-frame pump, graceful drain and live migration (``server/lifecycle.py``)
-and replicas (``add_replica``, ``ReplicaSync``); their RPC ops answer
-with an error frame (``connection_handler.LATER_OPS``).
+Not in the port yet: the native frame pump, graceful drain and live
+migration (``server/lifecycle.py``) and replicas (``add_replica``,
+``ReplicaSync``); their RPC ops answer with an error frame
+(``connection_handler.LATER_OPS``), and the heartbeat's lifecycle state
+is always SERVING.
 """
 
 from __future__ import annotations
@@ -53,12 +58,15 @@ class Server:
         experts: dict[str, ExpertBackend],
         host: str = "0.0.0.0",
         port: int = 0,
+        dht: Any = None,
         update_period: float = 15.0,
         batch_timeout: float = 0.002,
         chaos: Any = None,
+        telemetry_prefix: str = "swarm",
     ):
         self.experts = dict(experts)
         self.host, self._requested_port = host, port
+        self.dht = dht
         self.chaos = chaos.make() if hasattr(chaos, "make") else chaos
         self.update_period = update_period
         self.batch_timeout = batch_timeout
@@ -96,7 +104,10 @@ class Server:
         self._ready = threading.Event()
         self.port: Optional[int] = None
         # observability: every server hosts a tiny metrics endpoint
-        # (Prometheus + JSON + chrome trace) on its own loop
+        # (Prometheus + JSON + chrome trace) on its own loop and
+        # advertises it under the telemetry.<prefix> DHT key — same
+        # TTL-as-failure-detector contract as expert heartbeats
+        self.telemetry_prefix = telemetry_prefix
         self.metrics_server: Any = None
         self.metrics_port: Optional[int] = None
         self._metrics_loop: Optional[BackgroundLoop] = None
@@ -169,7 +180,19 @@ class Server:
                 if v >= self.hot_depth_threshold
             ),
             "lah_server_uptime_seconds": time.monotonic() - self.started_at,
+            **self._device_peak(),
         }
+
+    def _device_peak(self) -> dict:
+        """The port's own headline gauge: on a CUDA card, the caching
+        allocator's peak bytes in this process (the stats RPC's
+        ``metrics`` section carries it); nothing on the CPU."""
+        cards = {b.device for b in self.experts.values()
+                 if b.device.type == "cuda"}
+        if not cards:
+            return {}
+        return {"lah_server_device_peak_bytes":
+                torch.cuda.max_memory_allocated(cards.pop())}
 
     def _snap_queue_ema(self) -> dict:
         # the serving loop replaces entries in place; scrape threads
@@ -203,11 +226,12 @@ class Server:
         """Build a server from the expert zoo and (optionally) start it.
 
         Expert UIDs are ``{prefix}.{offset+i}``, each initialised from a
-        ``torch.Generator`` seeded ``seed + i``; or pass ``expert_uids``
-        (an explicit iterable) to host arbitrary uids, each seeded by the
-        crc32 of its uid, so every torch process that hosts a uid
-        initialises identical weights.  (The draws are torch's, not
-        flax's: only the distributions match the JAX package's.)
+        CPU ``torch.Generator`` seeded ``seed + i``; or pass
+        ``expert_uids`` (an explicit iterable) to host arbitrary uids,
+        each seeded by the crc32 of its uid.  Every expert is drawn on the
+        CPU, so one seed gives the same weights on the card or the CPU.
+        (The draws are torch's, not flax's: only the distributions match
+        the JAX package's.)
         Experts, their optimizer state and compute live on ``device``
         (None: the CUDA card; raises where there is none).  ``warmup``
         records the batch buckets and the output schema before returning:
@@ -226,8 +250,9 @@ class Server:
             ]
         experts = {}
         n_wire_inputs = len(sample_inputs(expert_cls, hidden_dim))
+        t0 = time.monotonic()
         for uid, uid_seed in uid_seeds:
-            gen = torch.Generator(dev).manual_seed(uid_seed)
+            gen = torch.Generator().manual_seed(uid_seed)
             apply_fn, params = make_expert(expert_cls, hidden_dim, gen,
                                            device=dev)
             experts[uid] = ExpertBackend(
@@ -235,6 +260,8 @@ class Server:
                 max_batch_size=max_batch_size, n_inputs=n_wire_inputs,
                 device=dev,
             )
+        logger.info("built %d %r experts on %s in %.1fs", len(experts),
+                    expert_cls, dev, time.monotonic() - t0)
         if warmup:
             t0 = time.monotonic()
             sample = sample_inputs(expert_cls, hidden_dim, rows=1)
@@ -293,9 +320,14 @@ class Server:
         self.port = self._tcp_server.sockets[0].getsockname()[1]
         for pool in (*self.forward_pools.values(), *self.backward_pools.values()):
             pool.start(self.runtime)
-        self._load_monitor = asyncio.get_running_loop().create_task(
+        loop = asyncio.get_running_loop()
+        self._load_monitor = loop.create_task(
             self._monitor_load_forever(), name="load-monitor"
         )
+        if self.dht is not None:
+            self._heartbeat = loop.create_task(
+                self._declare_experts_forever(), name="dht-heartbeat"
+            )
         logger.info(
             "server listening on %s:%d with %d experts (metrics on :%s)",
             self.host, self.port, len(self.experts), self.metrics_port,
@@ -356,6 +388,66 @@ class Server:
             for uid, ema in self._snap_queue_ema().items()
             if ema >= self.hot_depth_threshold
         }
+
+    async def _declare_experts_forever(self) -> None:
+        """Liveness heartbeat: re-declare the experts so their DHT records
+        stay fresh, and advertise the metrics endpoint under
+        ``telemetry.<prefix>`` with the same TTL — one missed cycle and
+        the swarm view marks this peer dead.  The same cycle publishes the
+        ``load.<prefix>`` record (runtime queue depth and the per-expert
+        hot map, keyed by this RPC endpoint), the ``links.<prefix>``
+        record (this process's measured link EMAs) and one
+        ``replicas.wanted.<prefix>`` entry per hot expert — all in one
+        ``declare_experts`` bundle: one store RPC per destination peer."""
+        from learning_at_home_tpu_torch.utils.telemetry import (
+            link_snapshot,
+            links_key,
+            load_key,
+            replicas_wanted_key,
+            telemetry_key,
+        )
+
+        peer_id = f"server-{self.endpoint[0]}:{self.port}"
+        ep_key = f"{self.endpoint[0]}:{self.port}"
+        while True:
+            try:
+                ttl = self.update_period * 2
+                extra: list[tuple] = []
+                if self.metrics_port is not None:
+                    extra.append((
+                        telemetry_key(self.telemetry_prefix),
+                        [self.endpoint[0], self.metrics_port, "server"],
+                        ttl, peer_id,
+                    ))
+                hot = self.hot_experts()
+                extra.append((
+                    load_key(self.telemetry_prefix),
+                    {
+                        "q": float(self.runtime.queue_depth),
+                        "n": len(self.experts),
+                        "hot": hot,
+                    },
+                    ttl, ep_key,
+                ))
+                links = link_snapshot()
+                if links:
+                    extra.append((
+                        links_key(self.telemetry_prefix),
+                        {"l": links}, ttl, ep_key,
+                    ))
+                for uid, ema in hot.items():
+                    extra.append((
+                        replicas_wanted_key(self.telemetry_prefix),
+                        [ema, self.endpoint[0], self.port],
+                        ttl, uid,
+                    ))
+                await self.dht.declare_experts(
+                    list(self.experts), self.endpoint,
+                    expiration=ttl, extra_records=extra,
+                )
+            except Exception:
+                logger.exception("declare_experts heartbeat failed")
+            await asyncio.sleep(self.update_period)
 
     # ---- checkpoint / resume ----
 
@@ -448,6 +540,7 @@ def background_server(
     expert_prefix: str = "expert",
     optimizer: Optional[GradientTransformation] = None,
     max_batch_size: int = 256,
+    dht: Any = None,
     seed: int = 0,
     device=None,
     **server_kwargs,
@@ -455,7 +548,8 @@ def background_server(
     """Spin up a localhost Server with generated experts (test/benchmark
     rig): yields ``(endpoint, server)``; tears down on exit.  Expert UIDs
     are ``{prefix}.{i}`` unless ``expert_uids`` is given; the optimizer
-    defaults to ``sgd(0.05)`` as the JAX package's does."""
+    defaults to ``sgd(0.05)`` as the JAX package's does.  With a ``dht``
+    the server heartbeats its experts into it."""
     server = Server.create(
         num_experts=num_experts,
         expert_cls=expert_cls,
@@ -465,6 +559,7 @@ def background_server(
         max_batch_size=max_batch_size,
         seed=seed,
         host="127.0.0.1",
+        dht=dht,
         device=device,
         **server_kwargs,
     )

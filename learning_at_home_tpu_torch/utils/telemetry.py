@@ -1,12 +1,7 @@
-"""Swarm telemetry: record keys and values, link snapshots, endpoint reads.
+"""Swarm telemetry rendezvous: publish + discover metrics endpoints via DHT.
 
-The port's copy of the JAX package's ``utils/telemetry.py`` as far as a
-server's stats and the MoE client need it: the ``load`` and ``links``
-key families and their value parsers, :func:`link_snapshot` (the
-``stats`` RPC's links section) and :func:`fetch_json` (a metrics
-endpoint's reader).  The ``telemetry`` and ``replicas.wanted`` families,
-DHT discovery and the trainer-side ``TelemetryPublisher`` come with the
-port's DHT.
+The port's copy of ``learning_at_home_tpu/utils/telemetry.py``: the same
+key families and values, so both packages' peers read each other's.
 
 Every peer (expert server AND trainer) runs a :class:`MetricsHTTPServer`
 (utils/metrics.py) and advertises it under the ``telemetry.<prefix>`` DHT
@@ -26,13 +21,13 @@ Key families (docs/PROTOCOL.md):
                               [rtt_s, bw_bps|null]}}
 
 ``load.*`` is the server-side load heartbeat the client routing cost
-model folds into expert selection (ISSUE 8): subkey is the RPC endpoint
+model folds into expert selection: subkey is the RPC endpoint
 so clients join it against alive-expert records without another lookup.
 ``replicas.wanted.*`` marks experts whose queue-depth EMA crossed the
 hot threshold — the rebalancer (tools/lah_rebalance.py) reads it to
 assign replicas to the least-loaded server.
 
-``links.*`` (ISSUE 16) is the swarm's measured link-cost map: each peer
+``links.*`` is the swarm's measured link-cost map: each peer
 that dials out (trainers, rebalancer, servers mid-handoff) piggybacks
 its per-destination connection-pool RTT/bandwidth EMAs onto its
 heartbeat.  The placement solver scores candidate expert assignments on
@@ -48,23 +43,39 @@ from __future__ import annotations
 
 import json
 import logging
+import threading
 import urllib.request
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
+from learning_at_home_tpu_torch.utils.asyncio_utils import BackgroundLoop
+from learning_at_home_tpu_torch.utils.metrics import MetricsHTTPServer
 
 logger = logging.getLogger(__name__)
 
 Endpoint = tuple[str, int]
 
+TELEMETRY_KEY_FAMILY = "telemetry"
 DEFAULT_PREFIX = "swarm"
 
+
+def telemetry_key(prefix: str = DEFAULT_PREFIX) -> str:
+    return f"{TELEMETRY_KEY_FAMILY}.{prefix}"
+
+
 LOAD_KEY_FAMILY = "load"
+REPLICAS_WANTED_KEY_FAMILY = "replicas.wanted"
 
 
 def load_key(prefix: str = DEFAULT_PREFIX) -> str:
     """Server load heartbeats: subkey = RPC ``host:port``, value a dict
     (``parse_load_value``).  Consumed by the client RoutingCostModel."""
     return f"{LOAD_KEY_FAMILY}.{prefix}"
+
+
+def replicas_wanted_key(prefix: str = DEFAULT_PREFIX) -> str:
+    """Hot-expert advertisements: subkey = expert uid, value
+    ``[queue-depth EMA, host, port]`` of the overloaded hoster."""
+    return f"{REPLICAS_WANTED_KEY_FAMILY}.{prefix}"
 
 
 LINKS_KEY_FAMILY = "links"
@@ -164,6 +175,49 @@ def parse_load_value(value: Any) -> Optional[dict]:
     return {"q": q, "n": n, "hot": hot}
 
 
+def parse_wanted_value(value: Any) -> Optional[dict]:
+    """``[depth EMA, host, port]`` → {"depth", "endpoint"}, or None."""
+    try:
+        depth = float(value[0])
+        host, port = value[1], int(value[2])
+        if not isinstance(host, str):
+            return None
+        return {"depth": depth, "endpoint": (host, port)}
+    except (TypeError, ValueError, IndexError, KeyError):
+        return None
+
+
+def parse_telemetry_value(value: Any) -> Optional[dict]:
+    """Peer-supplied ``[host, port, role?]`` → {"endpoint", "role"}, or
+    None when malformed (same tolerance as expert/averaging records)."""
+    try:
+        host, port = value[0], int(value[1])
+        if not isinstance(host, str):
+            return None
+        role = value[2] if len(value) > 2 and isinstance(value[2], str) else "peer"
+        return {"endpoint": (host, port), "role": role}
+    except (TypeError, ValueError, IndexError, KeyError):
+        return None
+
+
+def discover_telemetry(dht, prefix: str = DEFAULT_PREFIX) -> dict[str, dict]:
+    """Alive telemetry peers under the prefix:
+    ``{peer_id: {"endpoint": (host, port), "role": str, "expires_at": float}}``.
+    Expired records never appear (DHT reads drop them) — a peer missing
+    from consecutive snapshots is dead or partitioned."""
+    out: dict[str, dict] = {}
+    for subkey, (value, expires_at) in dht.get_sync(
+        telemetry_key(prefix)
+    ).items():
+        if not isinstance(subkey, str) or not subkey:
+            continue
+        parsed = parse_telemetry_value(value)
+        if parsed is not None:
+            parsed["expires_at"] = float(expires_at)
+            out[subkey] = parsed
+    return out
+
+
 def fetch_json(
     endpoint: Endpoint, path: str = "/metrics.json", timeout: float = 3.0
 ) -> Optional[dict]:
@@ -175,3 +229,121 @@ def fetch_json(
             return json.loads(r.read().decode())
     except Exception:
         return None
+
+
+def fetch_text(
+    endpoint: Endpoint, path: str = "/metrics", timeout: float = 3.0
+) -> Optional[str]:
+    """GET a text document (Prometheus exposition) from a peer."""
+    url = f"http://{endpoint[0]}:{endpoint[1]}{path}"
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as r:
+            return r.read().decode()
+    except Exception:
+        return None
+
+
+def fetch_trace_events(endpoint: Endpoint, timeout: float = 3.0) -> list:
+    """A peer's Chrome trace_event list (empty when unreachable or when
+    the peer runs with profiling off)."""
+    doc = fetch_json(endpoint, "/trace", timeout)
+    events = (doc or {}).get("traceEvents")
+    return events if isinstance(events, list) else []
+
+
+class TelemetryPublisher:
+    """Metrics endpoint + DHT heartbeat for a peer that has no Server.
+
+    Expert servers publish from server/server.py; a TRAINER process uses
+    this: it owns a small background loop hosting the
+    :class:`MetricsHTTPServer` and a daemon thread that re-declares
+    ``telemetry.<prefix>`` every ``period`` seconds with TTL =
+    ``2 × period`` — stop heartbeating (crash included) and the record
+    expires, which is exactly how the swarm learns the peer died.
+
+    ``host`` is both the bind address AND the address advertised in the
+    DHT: the default loopback is only correct for single-box swarms —
+    cross-machine deployments must pass this machine's swarm-reachable
+    address (``train_lm.py --telemetry-host``), exactly like a Server's
+    ``host``.
+    """
+
+    def __init__(
+        self,
+        dht,
+        prefix: str = DEFAULT_PREFIX,
+        role: str = "trainer",
+        peer_id: Optional[str] = None,
+        host: str = "127.0.0.1",
+        period: float = 5.0,
+        meta: Optional[dict] = None,
+        extra_fn: Optional[Callable[[], dict]] = None,
+    ):
+        import uuid
+
+        self.dht = dht
+        self.prefix = prefix
+        self.role = role
+        self.period = period
+        self.peer_id = peer_id or f"{role}-{uuid.uuid4().hex[:8]}"
+        self._loop = BackgroundLoop(name="lah-telemetry")
+        self.server = MetricsHTTPServer(
+            meta={"role": role, "peer_id": self.peer_id, **(meta or {})},
+            extra_fn=extra_fn,
+        )
+        try:
+            self.port: int = self._loop.run(self.server.start(host), timeout=10)
+        except BaseException:
+            self._loop.shutdown()
+            raise
+        self.endpoint: Endpoint = (host, self.port)
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def _declare_once(self) -> None:
+        try:
+            self.dht.store_sync(
+                telemetry_key(self.prefix),
+                [self.endpoint[0], self.port, self.role],
+                2 * self.period,
+                subkey=self.peer_id,
+            )
+            # measured link EMAs: a trainer's connection
+            # pools hold the src→server RTT/bw view the placement
+            # solver needs most — piggyback it on the same heartbeat
+            links = link_snapshot()
+            if links:
+                self.dht.store_sync(
+                    links_key(self.prefix),
+                    {"l": links},
+                    2 * self.period,
+                    subkey=self.peer_id,
+                )
+        except Exception:
+            logger.exception("telemetry heartbeat failed for %s", self.peer_id)
+
+    def start(self) -> "TelemetryPublisher":
+        if self._thread is not None:
+            return self
+        self._declare_once()  # visible immediately, not one period later
+
+        def heartbeat() -> None:
+            while not self._stop.wait(self.period):
+                self._declare_once()
+
+        self._thread = threading.Thread(
+            target=heartbeat, name="lah-telemetry-heartbeat", daemon=True
+        )
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=2 * self.period + 1)
+            self._thread = None
+        try:
+            self._loop.loop.call_soon_threadsafe(self.server.close)
+        except RuntimeError:
+            pass
+        self._loop.shutdown()

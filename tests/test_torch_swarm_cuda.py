@@ -6,8 +6,11 @@ file imports torch only, so it also runs where JAX is not installed:
     python -m pytest --noconftest -m cuda tests/test_torch_swarm_cuda.py
 
 Tolerances: f32 with TF32 off on the card; cuBLAS and the CPU sum the
-products in other orders (~1e-6 relative), so outputs, gradients and sgd
-updates are held at ``atol = rtol = 2e-5``.
+products in other orders (~1e-6 relative to the terms, which may be far
+larger than the sum), so outputs, gradients and sgd updates are held at
+the CPU tests' bar for dot products of 16 (2e-5) scaled by sqrt(H / 16)
+for products H long, as ``chip_smoke.py``'s card-against-CPU swarm check
+scales it: ``atol = rtol = 4e-5`` at H = 64.
 """
 
 import asyncio
@@ -29,7 +32,7 @@ from learning_at_home_tpu_torch.server.task_pool import BatchJob
 
 H = 64
 N = 4
-TOL = dict(atol=2e-5, rtol=2e-5)
+TOL = dict(atol=2e-5 * (H / 16) ** 0.5, rtol=2e-5 * (H / 16) ** 0.5)
 
 
 @pytest.fixture
