@@ -140,6 +140,44 @@ Phases, each of which asserts (none catches its own failure):
                and gate gradient within 2e-4 + 2e-4 |ref|.  No kernel of
                the kernels line is on this path (0 launches).
 
+14. elastic -- ``swarm-elastic-d512``: config 3's width (d 512, 8 heads,
+               seq 256, byte vocabulary, grid (16, 16), top-2, 256 ``ffn``
+               experts at hidden 512, adam 3e-4) cut to ONE MoE layer, all
+               on the card: a bootstrap DHT node; server A through the
+               CLI hosting layer 0's 256 experts (asyncio transport, a
+               checkpoint dir); servers B (``--transport native``) and C
+               booted empty (replica hosts); two trainers here, each with
+               its own DHT node.  Asserts, in order: (1) averaging -- the
+               trainers (``PipelinedSwarmTrainer.attach_averaging``) take
+               ELASTIC_AVG_STEPS steps at once, each session's
+               ``notify_step`` starts a background round, and after it
+               each trainer's params on the card are the mean of the two
+               snapshots within ELASTIC_AVG_ULPS ulp (the delta's
+               roundings); ``averaging_stats`` shows a group of 2; (2)
+               replicas -- the 8 experts A updated most go to B and C by
+               the ``replica`` RPC with sync (A, their hoster, syncs
+               none), the DHT shows all three hosters, one backward moves
+               B's copy of each off C's, and the next ``ReplicaSync``
+               round leaves B's and C's copies the same bits (the servers'
+               parameter crcs), off the init, while each keeps its own
+               optimizer state (update counts 1 and 0; A's unchanged);
+               (3) migration -- one uid moves A -> B by the ``migrate``
+               RPC, B verifies its installed state against A's manifest;
+               (4) drain -- a ``drain`` RPC to A (successor B, grace 1 s)
+               while a trainer keeps stepping: A reaches DRAINED, every
+               expert handed off and verified (none checkpointed), B's
+               update counts continue A's, every step completes (the
+               replies the quorum dropped are printed); (5) card against
+               CPU -- a fresh expert of each uid set drawn on the card
+               gives the manifest crcs of the one drawn on the CPU (the
+               init repair's 2-ulp bar, met bit for bit).  Prints the
+               averaging round's time and bytes, the replica sync round
+               time, the handoff's MB/s and ms per expert, the drain's
+               wall time, step times before, during and after the drain,
+               B's pump frames, each server's peak card memory and one
+               expert's init time at hidden 512.  No kernel of the
+               kernels line is on this path (0 launches).
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA card or
 without the repository's package beside it.
@@ -148,7 +186,7 @@ without the repository's package beside it.
 phase 12's timings of K5 and K1-K3 (or of one family; no model path, no
 kernels line): a kernel change's quick check and its times.
 ``python3 chip_smoke.py --swarm-lm-only`` runs phases 1 and 13 (no kernel
-is built, no kernels line).
+is built, no kernels line); ``--elastic-only`` runs phases 1 and 14.
 """
 
 from __future__ import annotations
@@ -166,6 +204,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -173,9 +212,15 @@ import torch
 
 from learning_at_home_tpu_torch import optim
 from learning_at_home_tpu_torch import random as prng
+from learning_at_home_tpu_torch.averaging import (
+    AveragingConfig,
+    AveragingSession,
+    DecentralizedAverager,
+)
 from learning_at_home_tpu_torch.client.moe import RemoteMixtureOfExperts
 from learning_at_home_tpu_torch.client.routing import StaticExpertSource
 from learning_at_home_tpu_torch.client import PipelinedSwarmTrainer
+from learning_at_home_tpu_torch.client.expert import RemoteExpert
 from learning_at_home_tpu_torch.client.rpc import (
     client_loop,
     pool_registry,
@@ -202,7 +247,11 @@ from learning_at_home_tpu_torch.ops import moe_dispatch
 from learning_at_home_tpu_torch.ops import token_dispatch as td
 from learning_at_home_tpu_torch.ops.fused_adafactor import fused_adafactor
 from learning_at_home_tpu_torch.parallel import sharded_moe
-from learning_at_home_tpu_torch.server.server import Server
+from learning_at_home_tpu_torch.models.layers import make_expert
+from learning_at_home_tpu_torch.server import lifecycle
+from learning_at_home_tpu_torch.server.expert_backend import ExpertBackend
+from learning_at_home_tpu_torch.server.server import Server, uid_key
+from learning_at_home_tpu_torch.utils import telemetry
 from learning_at_home_tpu_torch.utils.nested import nested_flatten
 from learning_at_home_tpu_torch.utils.profiling import timeline
 from learning_at_home_tpu_torch.tree import tree_leaves, tree_map
@@ -305,6 +354,30 @@ SWARM_LM_TWIN = dict(vocab_size=VOCAB_SIZE, d_model=64, n_layers=2,
                      uid_prefix="twin", wire_codec="none",
                      timeout_after_k_min=SWARM_CHECK_GRACE_S)
 SWARM_LM_TWIN_BATCH = 4
+# phase 14 (swarm-elastic-d512): config 3's width cut to one MoE layer
+# (server A's 256 experts, ~6.5 GB of params and adam moments to hand
+# off).  Heartbeats every 1 s (records live 2 s, longer than the DHT
+# client's 1 s cache of a lookup: 0.5 s records came back from that
+# cache already expired and emptied the alive set) and the trainers'
+# alive set cached 1 s: the drain's 1 s grace is shorter than what
+# clients know, so a trainer may send an expert A handed off in the
+# drain's first seconds to A, and the quorum absorbs those replies
+# (printed)
+ELASTIC = dict(SWARM_LM, n_layers=1)
+ELASTIC_SERVER = ["--optimizer", "adam", "--lr", str(SWARM_LM_LR),
+                  "--max-batch-size", "4096", "--update-period", "1"]
+ELASTIC_ALIVE_TTL = 1.0
+ELASTIC_AVG_STEPS = 2  # each trainer's steps before the averaging round
+ELASTIC_MATCH_S = 60.0  # an averaging round's matchmaking budget
+# the averaged params against the snapshots' mean: the delta's two f32
+# roundings (avg - snap, then + cur), each within 1 ulp of the larger
+ELASTIC_AVG_ULPS = 4
+ELASTIC_REPLICAS = 8
+ELASTIC_PUSH_ROWS = 16  # rows of the backward that moves B's replica
+ELASTIC_GRACE_S = 1.0
+ELASTIC_STEPS_AROUND = 3  # timed steps before and after the drain
+ELASTIC_DRAIN_S = 600.0  # the deadline for A to reach DRAINED
+ELASTIC_SYNC_S = 120.0  # the deadline for a replica sync round per uid
 # the main paths' kernel shapes: [B,S,H,hd] of one flagship-8k prefill
 # layer and of one flagship-8k-train layer; [n, d, V] of each training
 # configuration's CE
@@ -1457,7 +1530,8 @@ class SwarmServers:
         with open(log, "w") as out:
             proc = subprocess.Popen(
                 [sys.executable, "-m", "learning_at_home_tpu_torch.server",
-                 "--expert-uids", ",".join(uids), "--hidden-dim", str(hidden),
+                 *(["--expert-uids", ",".join(uids)] if uids else []),
+                 "--hidden-dim", str(hidden),
                  "--host", "127.0.0.1", "--initial-peers",
                  f"{peer[0]}:{peer[1]}", "--device", device, *extra],
                 cwd=self.root, env=env, stdout=out, stderr=subprocess.STDOUT)
@@ -1830,6 +1904,440 @@ def swarm_lm(counters, card: str) -> dict:
         reset_client_rpc()
 
 
+# ---- phase 14: the elastic swarm ----
+
+
+def rpc(ep, op: str, meta: dict, timeout: float = 60.0):
+    """One RPC's reply meta."""
+    return client_loop().run(pool_registry().get(ep).rpc(
+        op, (), meta, timeout=timeout))[1]
+
+
+def metrics_endpoints(dht, want: int, servers: SwarmServers,
+                      deadline_s: float = 120.0) -> dict:
+    """RPC endpoint -> metrics endpoint of the servers advertised under
+    ``telemetry.swarm`` (their peer id names the RPC endpoint)."""
+    t_end = time.perf_counter() + deadline_s
+    while True:
+        servers.check()
+        found = {}
+        for peer, rec in telemetry.discover_telemetry(dht).items():
+            if peer.startswith("server-") and rec["role"] == "server":
+                host, _, port = peer[len("server-"):].rpartition(":")
+                found[(host, int(port))] = tuple(rec["endpoint"])
+        if len(found) >= want or time.perf_counter() > t_end:
+            break
+        time.sleep(0.5)
+    assert len(found) >= want, f"{len(found)} of {want} servers advertised"
+    return found
+
+
+def server_doc(metrics_ep) -> dict:
+    """A server's ``/metrics.json`` (its per-expert update counts and
+    replica sync stats)."""
+    doc = telemetry.fetch_json(metrics_ep, timeout=30.0)
+    assert doc is not None, f"no /metrics.json from {metrics_ep}"
+    return doc
+
+
+def wait_until(pred, what: str, deadline_s: float, servers: SwarmServers):
+    t_end = time.perf_counter() + deadline_s
+    while True:
+        servers.check()
+        got = pred()
+        if got:
+            return got
+        assert time.perf_counter() < t_end, f"timed out: {what}"
+        time.sleep(0.5)
+
+
+def expert_manifest(uid_or_seed, hidden: int, device: str) -> list:
+    """The manifest of a fresh ffn expert with adam's state, drawn on
+    ``device`` (a uid: its crc32 key; an int: PRNGKey(seed))."""
+    key = (uid_key(uid_or_seed) if isinstance(uid_or_seed, str)
+           else prng.PRNGKey(uid_or_seed))
+    apply_fn, params = make_expert("ffn", hidden, key, device=device)
+    backend = ExpertBackend("x", apply_fn, params, optim.adam(SWARM_LM_LR),
+                            device=device)
+    return lifecycle.flatten_state(backend.state_dict())[1]
+
+
+def elastic_init_check(uids: list, replicas: list, hidden: int,
+                       card: str) -> None:
+    """Step 5: card against CPU draws, and one expert's init time."""
+    for subject in (uids[-1], replicas[0], 0):
+        on_card = expert_manifest(subject, hidden, "cuda")
+        on_cpu = expert_manifest(subject, hidden, "cpu")
+        assert on_card == on_cpu, f"card and CPU draws of {subject!r} differ"
+    times = {}
+    for dev in ("cuda", "cpu"):
+        ts = []
+        for i in range(5):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            make_expert("ffn", hidden, uid_key(uids[i]), device=dev)
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t)
+        times[dev] = statistics.median(ts[1:]) * 1e3
+    print(f"  card against CPU: the fresh experts {uids[-1]!r}, "
+          f"{replicas[0]!r} (crc32 keys) and PRNGKey(0) drawn on the card "
+          f"give the CPU draws' manifest crcs (0 ulp, bar 2); one expert's "
+          f"init at hidden {hidden}: card {times['cuda']:.3f} ms, CPU "
+          f"{times['cpu']:.3f} ms (median of 4) [{card}]")
+
+
+def in_threads(fns, what: str, timeout: float) -> None:
+    """Run ``fns`` at once, one thread each; re-raise the first failure."""
+    errors = []
+
+    def run(fn):
+        try:
+            fn()
+        except BaseException as e:  # surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(fn,), daemon=True)
+               for fn in fns]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=timeout)
+        assert not t.is_alive(), f"{what} hung"
+    if errors:
+        raise errors[0]
+
+
+def check_group_mean(trainers, snaps) -> int:
+    """Each trainer's params after its background round against the mean
+    of the round's two snapshots: no step ran after the snapshots, so the
+    delta ``cur + (mean - snap)`` is the mean up to its two roundings
+    (ELASTIC_AVG_ULPS f32 ulp of the larger of |mean| and |snap|).
+    Returns the elements checked."""
+    means = tree_map(lambda a, b: (a + b) / 2, snaps[0], snaps[1])
+    n = 0
+    for trainer, snap in zip(trainers, snaps):
+        for got, mean, own in zip(tree_leaves(trainer.snapshot()[0]),
+                                  tree_leaves(means), tree_leaves(snap)):
+            assert got.device.type == "cuda"
+            bar = (ELASTIC_AVG_ULPS * torch.finfo(torch.float32).eps
+                   * torch.maximum(mean.abs(), own.abs()))
+            bad = (got - mean).abs() > bar
+            assert not bool(bad.any()), (
+                f"a trainer's param is {float((got - mean).abs().max())} "
+                f"off the group mean (bar {ELASTIC_AVG_ULPS} ulp)")
+            n += got.numel()
+    return n
+
+
+def elastic(counters, card: str) -> dict:
+    """Phase 14 (see the module docstring).  Returns the kernels' launch
+    counts of its main path (the trainers' steps, the averaging round,
+    the replicas, the migration and the drain)."""
+    t_phase = time.perf_counter()
+    cfg = SwarmTransformerConfig(**ELASTIC)
+    prefix = f"{cfg.uid_prefix}0"
+    uids = grid_uids(prefix, cfg.grid_size)
+    root = os.path.dirname(os.path.abspath(__file__))
+    ckpt = os.path.join(root, "build", "elastic_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    boot = DHT()
+    servers = SwarmServers(3)
+    nodes, sessions = [], []
+    try:
+        servers.start("elastic-A", uids, cfg.d_model, boot.endpoint, "cuda",
+                      ELASTIC_SERVER + ["--warmup", "--checkpoint-dir", ckpt])
+        servers.start("elastic-B", None, cfg.d_model, boot.endpoint, "cuda",
+                      ELASTIC_SERVER + ["--num-experts", "0",
+                                        "--transport", "native"])
+        servers.start("elastic-C", None, cfg.d_model, boot.endpoint, "cuda",
+                      ELASTIC_SERVER + ["--num-experts", "0"])
+        nodes = [DHT(initial_peers=[boot.endpoint]) for _ in range(2)]
+        alive = wait_for_experts(nodes[0], servers, [prefix], len(uids),
+                                 SWARM_LM_DISCOVERY_S)
+        ep_a = next(iter(set(alive.values())))
+        metrics = metrics_endpoints(nodes[0], 3, servers)
+        empty = [ep for ep in metrics if ep != ep_a]
+        native = [ep for ep in empty if "lah_server_native_frames_in_total"
+                  in rpc(ep, "stats", {})["metrics"]["collected"]]
+        assert len(native) == 1, native
+        ep_b = native[0]
+        ep_c = next(ep for ep in empty if ep != ep_b)
+        print(f"  {len(alive)} experts alive on A {ep_a}; B {ep_b} "
+              f"(native), C {ep_c} empty; "
+              f"{time.perf_counter() - t_phase:.1f} s after the processes "
+              f"started [{card}]")
+
+        models = [SwarmDMoETransformerLM(cfg, node) for node in nodes]
+        for m in models:
+            m.moes[0].alive_cache.ttl = ELASTIC_ALIVE_TTL
+        replies = [count_forward_replies(m.moes[0]) for m in models]
+        opt = optim.adamw(SWARM_LM_LR)
+        corpus = load_corpus(seed=SEED)
+        batchers = [LMBatcher(corpus, SWARM_LM_BATCH, cfg.seq_len,
+                              seed=SEED + i) for i in range(2)]
+        tokens = SWARM_LM_BATCH * cfg.seq_len
+        reset_counts(counters)
+        torch.cuda.reset_peak_memory_stats()
+
+        # (1) averaging: two trainers at once, each session starting its
+        # background round from notify_step after ELASTIC_AVG_STEPS steps
+        trainers = [PipelinedSwarmTrainer(
+            m, opt, m.init_params(torch.Generator().manual_seed(SEED + i),
+                                  device="cuda"), n_workers=1)
+            for i, m in enumerate(models)]
+        for node, trainer in zip(nodes, trainers):
+            session = AveragingSession(DecentralizedAverager(
+                node, AveragingConfig(
+                    prefix="averaging.elastic", min_group_size=2,
+                    max_group_size=2, matchmaking_timeout=ELASTIC_MATCH_S)),
+                every_steps=ELASTIC_AVG_STEPS)
+            trainer.attach_averaging(session)
+            sessions.append(session)
+        snaps = [None, None]
+
+        def steps_then_round(i):
+            def on_log(entry):
+                # the last step's params, read before its notify_step
+                # starts the round: what the round snapshots
+                if entry["step"] == ELASTIC_AVG_STEPS:
+                    snaps[i] = trainers[i].snapshot()[0]
+
+            trainers[i].train(batchers[i], steps=ELASTIC_AVG_STEPS,
+                              log_every=ELASTIC_AVG_STEPS, on_log=on_log,
+                              tokens_per_batch=tokens)
+            assert sessions[i].wait_idle(timeout=2 * ELASTIC_MATCH_S), \
+                "the background averaging round did not end"
+
+        in_threads([lambda i=i: steps_then_round(i) for i in range(2)],
+                   "the trainers' steps and averaging round",
+                   4 * ELASTIC_MATCH_S)
+        servers.check()
+        stats = [t.averaging_stats() for t in trainers]
+        assert all(st["group_size_last"] == 2 and st["rounds_applied"] == 1
+                   for st in stats), stats
+        n_avg = check_group_mean(trainers, snaps)
+        for session in sessions:
+            # trainer 1 steps no more: a lone round of trainer 0 would hold
+            # its DHT node in matchmaking through the drain (PERF.md §7)
+            session.every_steps = 10 ** 9
+        print(f"  averaging: {ELASTIC_AVG_STEPS} steps each (last losses "
+              + ", ".join(f"{t.losses[-1]:.4f}" for t in trainers)
+              + f"), then one background round each from notify_step, "
+              f"group of {stats[0]['group_size_last']}; {n_avg} trunk and "
+              f"gate elements on the card within {ELASTIC_AVG_ULPS} ulp of "
+              f"the snapshots' mean after the delta; round "
+              f"{stats[0]['round_p50_ms']:.3f} / {stats[1]['round_p50_ms']:.3f}"
+              f" ms, bytes sent {stats[0]['bytes_sent']} / "
+              f"{stats[1]['bytes_sent']}, received "
+              f"{stats[0]['bytes_received']} / {stats[1]['bytes_received']}"
+              f" [{card}]")
+
+        # (2) synced replicas on B and C of the experts A updated most
+        counts_a = server_doc(metrics[ep_a])["experts"]
+        hot = sorted(counts_a, key=lambda u: (-counts_a[u], u))[
+            :ELASTIC_REPLICAS]
+        t_rep = time.perf_counter()
+        for uid in hot:
+            for ep in (ep_b, ep_c):
+                rep = rpc(ep, "replica", {"uid": uid, "sync": True})
+                assert rep == {"uid": uid, "installed": True,
+                               "hosted": True}, rep
+            rep = rpc(ep_a, "replica", {"uid": uid, "sync": True})
+            assert rep["installed"] is False and rep["hosted"] is True, rep
+
+        def all_hosters():
+            found = client_loop().run(
+                nodes[1].get_alive_experts_fresh(prefix))
+            return all(isinstance(found.get(u), tuple)
+                       and {ep_a, ep_b, ep_c} <= set(found[u]) for u in hot)
+
+        wait_until(all_hosters, "three hosters in the DHT", 60.0, servers)
+
+        def sync_docs():
+            return [server_doc(metrics[ep])["replica_sync"]
+                    for ep in (ep_b, ep_c)]
+
+        docs = wait_until(
+            lambda: (lambda d: d if all(
+                u in x and x[u]["rounds"] >= 1 for x in d for u in hot)
+                else None)(sync_docs()),
+            "a first replica sync round per uid", ELASTIC_SYNC_S, servers)
+        t_first = time.perf_counter() - t_rep
+        init_crc = {u: docs[1][u]["params_crc"] for u in hot}
+        assert not set(hot) & set(server_doc(metrics[ep_a])["replica_sync"])
+        # one backward into B's copy of each uid, just after one of its
+        # rounds ended (a sync period before the next): B's copy leaves
+        # C's, and the next round must average the two
+        rng = np.random.default_rng(SEED)
+        seen = {u: docs[0][u]["rounds"] for u in hot}
+        pushed = {}
+        t_end = time.perf_counter() + ELASTIC_SYNC_S
+        while len(pushed) < len(hot):
+            servers.check()
+            doc_b = server_doc(metrics[ep_b])["replica_sync"]
+            for u in hot:
+                if u not in pushed and doc_b[u]["rounds"] > seen[u]:
+                    x, g = (rng.standard_normal(
+                        (ELASTIC_PUSH_ROWS, cfg.d_model)).astype(np.float32)
+                        for _ in range(2))
+                    RemoteExpert(u, ep_b).backward_blocking([x], [g])
+                    pushed[u] = doc_b[u]["rounds"]
+            assert time.perf_counter() < t_end, "no sync round to follow"
+            time.sleep(0.05)
+
+        def averaged():
+            d = sync_docs()
+            if all(d[0][u]["rounds"] > pushed[u] and d[1][u]["rounds"] >= 2
+                   and d[0][u]["params_crc"] == d[1][u]["params_crc"]
+                   != init_crc[u] for u in hot):
+                return d
+            return None
+
+        docs = wait_until(averaged, "a replica sync round after the update",
+                          ELASTIC_SYNC_S, servers)
+        t_rep = time.perf_counter() - t_rep
+        infos = {ep: [rpc(ep, "info", {"uid": u})["update_count"]
+                      for u in hot] for ep in (ep_a, ep_b, ep_c)}
+        assert infos[ep_b] == [1] * len(hot), infos
+        assert infos[ep_c] == [0] * len(hot), infos
+        assert infos[ep_a] == [counts_a[u] for u in hot], infos
+        p50 = [d[u]["round_p50_ms"] for d in docs for u in hot]
+        print(f"  replicas: {hot} on B and C (sync), none synced on A (the "
+              f"hoster); the DHT lists A, B and C for each; every first "
+              f"sync round {t_first:.1f} s after the first replica RPC; one "
+              f"backward into B's copy of each, then a ReplicaSync round "
+              f"leaves B's and C's copies the same bits "
+              f"({len(docs[0][hot[0]]['params_crc'])} leaf crcs each), "
+              f"off the init; update counts B {infos[ep_b]}, C "
+              f"{infos[ep_c]}, A {infos[ep_a]} (each its own optimizer "
+              f"state); sync round p50 {min(p50):.3f}-{max(p50):.3f} ms; "
+              f"{t_rep:.1f} s from the first replica RPC [{card}]")
+
+        # (3) migration of one uid A -> B
+        moved = next(u for u in uids if u not in hot)
+        t_mig = time.perf_counter()
+        rep = rpc(ep_a, "migrate", {"uid": moved, "target": list(ep_b)})
+        assert rep["started"] is True, rep
+
+        def migrated():
+            placement = rpc(ep_a, "stats", {})["placement"]
+            return (placement if placement["migration_in_flight"] is None
+                    else None)
+
+        placement = wait_until(migrated, "the migration", 120.0, servers)
+        t_mig = time.perf_counter() - t_mig
+        lc_b = rpc(ep_b, "stats", {})["lifecycle"]
+        assert placement["migrations_out"] == 1, placement
+        assert placement["migration_failures"] == 0, placement
+        assert moved in lc_b["migrated_in"], lc_b
+        assert lc_b["handoff"]["received"] == 1, lc_b
+        assert lc_b["handoff"]["rejected"] == 0, lc_b
+        print(f"  migration: {moved} A -> B in {t_mig:.3f} s, B's installed "
+              f"state verified against A's manifest [{card}]")
+
+        # (4) drain A to B while trainer 0 keeps stepping
+        trainer, model = trainers[0], models[0]
+        counts_before = server_doc(metrics[ep_a])["experts"]
+        drops0 = (replies[0]["dropped"], model.moes[0].backward_rpcs_sent
+                  - model.moes[0].backward_rpcs_ok,
+                  model.moes[0].samples_dropped)
+
+        def step_times(n):
+            """(seconds, experts called) of ``n`` steps of trainer 0."""
+            out = []
+            for _ in range(n):
+                servers.check()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                trainer.train(batchers[0], steps=1, tokens_per_batch=tokens)
+                torch.cuda.synchronize()
+                out.append((time.perf_counter() - t,
+                            len(model.moes[0].selection_log[-1])))
+            return out
+
+        before = step_times(ELASTIC_STEPS_AROUND)
+        t_drain = time.perf_counter()
+        rep = rpc(ep_a, "drain", {"successor": list(ep_b),
+                                  "grace": ELASTIC_GRACE_S})
+        assert rep["started"] is True and rep["draining"] is True, rep
+        during = []
+        while True:
+            lc_a = rpc(ep_a, "stats", {})["lifecycle"]
+            if lc_a["state"] == lifecycle.DRAINED:
+                break
+            assert time.perf_counter() - t_drain < ELASTIC_DRAIN_S, \
+                "A did not reach DRAINED"
+            during += step_times(1)
+        t_drain = time.perf_counter() - t_drain
+        after = step_times(ELASTIC_STEPS_AROUND)
+        summary = lc_a["drain_summary"]
+        handed = sorted(u for u in uids if u != moved)
+        assert summary["handed_off"] == handed, summary["failed"]
+        assert summary["failed"] == [] and summary["checkpointed"] == [], \
+            summary
+        doc_b = server_doc(metrics[ep_b])
+        behind = [u for u in handed
+                  if doc_b["experts"].get(u, -1) < counts_before[u]]
+        assert not behind, f"B's update counts behind A's: {behind[:5]}"
+        st_b = rpc(ep_b, "stats", {})
+        lc_b = st_b["lifecycle"]
+        assert lc_b["handoff"]["received"] == len(uids), lc_b["handoff"]
+        assert set(lc_b["migrated_in"]) == set(uids), lc_b["migrated_in"]
+        assert lc_b["handoff"]["rejected"] == 0, lc_b["handoff"]
+        mb = summary["handoff_bytes"] / 1e6
+        print(f"  drain: A DRAINED {t_drain:.1f} s after the drain RPC "
+              f"(its sequence {summary['duration_s']:.3f} s with a "
+              f"{ELASTIC_GRACE_S} s grace); {len(handed)} experts handed off "
+              f"and verified, 0 failed, 0 checkpointed; handoffs "
+              f"{summary['handoff_s']:.3f} s for {mb:.1f} MB: "
+              f"{mb / summary['handoff_s']:.1f} MB/s, "
+              f"{summary['handoff_s'] / len(handed) * 1e3:.3f} ms per "
+              f"expert; B's update counts continue A's [{card}]")
+        def fmt(series):
+            return ", ".join(f"{t:.3f} ({n})" for t, n in series)
+
+        print(f"  step times s (experts called): before the drain "
+              f"{fmt(before)}; during {fmt(during)}; after {fmt(after)} "
+              f"({len(during)} steps during, every step completed) "
+              f"[{card}]")
+        moe = model.moes[0]
+        print(f"  quorum drops since the drain's first step: forward "
+              f"{replies[0]['dropped'] - drops0[0]} replies, backward "
+              f"{moe.backward_rpcs_sent - moe.backward_rpcs_ok - drops0[1]}"
+              f" RPCs, samples {moe.samples_dropped - drops0[2]} forward; "
+              f"over the phase: forward {replies[0]['dropped']}/"
+              f"{replies[0]['expected']} replies [{card}]")
+        counts = read_counts(counters)
+        peak = torch.cuda.max_memory_allocated()
+        collected = [rpc(ep, "stats", {})["metrics"]["collected"]
+                     for ep in (ep_a, ep_b, ep_c)]
+        print(f"  B's pump: "
+              f"{int(collected[1]['lah_server_native_frames_in_total'])} "
+              f"frames in, "
+              f"{int(collected[1]['lah_server_native_frames_out_total'])} "
+              f"replies out; peak card memory A "
+              f"{collected[0].get('lah_server_device_peak_bytes', 0) / 1e9:.3f}"
+              f" GB, B "
+              f"{collected[1].get('lah_server_device_peak_bytes', 0) / 1e9:.3f}"
+              f" GB, C "
+              f"{collected[2].get('lah_server_device_peak_bytes', 0) / 1e9:.3f}"
+              f" GB, trainers {peak / 1e9:.3f} GB [{card}]")
+
+        # (5) card against CPU
+        elastic_init_check(uids, hot, cfg.d_model, card)
+        servers.check()
+        print(f"elastic phase: {time.perf_counter() - t_phase:.1f} s")
+        return counts
+    finally:
+        for session in sessions:
+            session.shutdown()
+        servers.stop()
+        for node in nodes:
+            node.shutdown()
+        boot.shutdown()
+        reset_client_rpc()
+
+
 def time_dispatch(plans, results) -> None:
     """Timings of K4 on layer 0's plan of each path: kernel, plain
     version, ``index_select`` yardstick, bound from the plan's own fill.
@@ -2094,6 +2602,8 @@ def main() -> int:
                          "all kernels or of one family")
     ap.add_argument("--swarm-lm-only", action="store_true",
                     help="phases 1 and 13 only (no kernel is built)")
+    ap.add_argument("--elastic-only", action="store_true",
+                    help="phases 1 and 14 only (no kernel is built)")
     args = ap.parse_args()
     phase("device")
     if not torch.cuda.is_available():
@@ -2115,6 +2625,11 @@ def main() -> int:
         phase("swarm LM swarm-dmoe-4l-256e-d512")
         swarm_lm(counters, card)
         swarm_lm_twins(card)
+        print(card)
+        return 0
+    if args.elastic_only:
+        phase("elastic swarm-elastic-d512")
+        elastic(counters, card)
         print(card)
         return 0
 
@@ -2167,6 +2682,10 @@ def main() -> int:
     launches["swarm-dmoe-4l-256e-d512 (train steps)"] = swarm_lm(counters,
                                                                   card)
     swarm_lm_twins(card)
+
+    phase("elastic swarm-elastic-d512")
+    launches["swarm-elastic-d512 (averaging, replicas, migration, drain)"] = \
+        elastic(counters, card)
 
     kernels = []
     for name, (source, replaces, shape) in KERNELS.items():

@@ -16,6 +16,10 @@ task pools, the device runtime, the wire handler), its client
 (``client/``: ``RemoteExpert``, ``RemoteMixtureOfExperts``) and their
 framework-free utilities (``utils/``: the wire, nests, checkpoints,
 metrics, tracing, the sanitizer), speaking the JAX package's wire byte
-for byte.  Entry points run on the CUDA card unless given
-``device="cpu"``.
+for byte; the Kademlia DHT (``dht/``) and the swarm DMoE-Transformer
+with its pipelined trainer; and the elastic tier: decentralized
+averaging (``averaging/``), graceful drain, handoff and migration
+(``server/lifecycle.py``), replicas with ``ReplicaSync`` and the native
+frame pump (``native/``).  Entry points run on the CUDA card unless
+given ``device="cpu"``.
 """

@@ -17,8 +17,13 @@ optimizer apply; updates may be ``n_workers - 1`` steps stale (bounded
 staleness, the same class as the servers' async SGD).  ``n_workers=1``
 reproduces the sequential steps exactly.
 
-Multi-trainer averaging (``attach_averaging``) waits for the port of the
-JAX package's ``averaging/``.
+Multi-trainer synchronization: in async-DP runs each trainer owns its own
+trunk/gate state.  :meth:`attach_averaging` plugs in an
+``averaging.AveragingSession`` — between local steps the session
+snapshots the params (a consistent read under the apply lock), runs a
+DHT-matched group all-reduce with the other trainers (of either package)
+in the background, and applies the group delta atomically (``params +=
+mean - snapshot``; local steps taken during the round survive).
 """
 
 from __future__ import annotations
@@ -31,12 +36,6 @@ from learning_at_home_tpu_torch.optim import applied_updates, value_and_grad
 from learning_at_home_tpu_torch.utils import sanitizer
 
 __all__ = ["PipelinedSwarmTrainer"]
-
-AVERAGING_NOT_PORTED = (
-    "trainer averaging (the JAX package's averaging/, AveragingSession) is "
-    "not ported to learning_at_home_tpu_torch yet: it is the averaging "
-    "slice of ROADMAP.md, queue 1 item 4"
-)
 
 
 class PipelinedSwarmTrainer:
@@ -70,6 +69,7 @@ class PipelinedSwarmTrainer:
         self.losses: list[float] = []
         self.step_count = 0
         self.errors: list[BaseException] = []
+        self._averaging = None  # AveragingSession via attach_averaging
 
     # ---- internals ----
 
@@ -116,20 +116,32 @@ class PipelinedSwarmTrainer:
                 step_now = self.step_count
             if on_step is not None:
                 on_step(step_now, float(loss))
+            if self._averaging is not None:
+                self._averaging.notify_step(step_now)
 
     # ---- public API ----
 
     def attach_averaging(self, session) -> None:
-        raise NotImplementedError(AVERAGING_NOT_PORTED)
-
-    def averaging_stats(self) -> dict | None:
-        raise NotImplementedError(AVERAGING_NOT_PORTED)
+        """Plug in an ``averaging.AveragingSession``: it snapshots params
+        between steps and applies the group mean atomically."""
+        session.attach_trainer(
+            snapshot_fn=lambda: self.snapshot()[0],
+            apply_fn=self.apply_param_transform,
+        )
+        self._averaging = session
 
     def apply_param_transform(self, transform) -> None:
         """Atomically replace ``params`` with ``transform(params)`` under
-        the apply lock (never races an optimizer update)."""
+        the apply lock (the averaging-apply entry point — never races an
+        optimizer update)."""
         with self._apply_lock:
             self.params = transform(self.params)
+
+    def averaging_stats(self) -> dict | None:
+        return (
+            self._averaging.averaging_stats()
+            if self._averaging is not None else None
+        )
 
     def snapshot(self) -> tuple:
         """A CONSISTENT (params, opt_state, step_count) triple — the three

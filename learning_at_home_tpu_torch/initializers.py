@@ -1,7 +1,12 @@
-"""Random initialisers with the distributions of ``jax.nn.initializers``.
+"""Random initialisers with the distributions of ``jax.nn.initializers``,
+for the model trunks' ``init_params`` (pod mode and the swarm trainer).
 
 They draw from an explicit ``torch.Generator`` on its own device, so the
-values differ from JAX's (threefry) draws while the distributions match.
+values differ from JAX's (threefry) draws while the distributions match;
+the tests convert the JAX package's parameters where they compare models.
+The experts draw JAX's own stream instead (``models/layers.py``
+``make_expert``, ``random.truncated_normal``): replicas and handoffs
+between the two packages need the same weights.
 """
 
 from __future__ import annotations

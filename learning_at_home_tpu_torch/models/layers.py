@@ -11,7 +11,12 @@ leaf (``convert.py``).  Servers run the blocks functionally:
 :func:`make_expert` returns ``(apply_fn, params)`` with
 ``apply_fn(params, *inputs)`` a ``torch.func.functional_call`` of a block
 built on the meta device, so the one parameter tree lives with the
-optimizer state on the backend's device.
+optimizer state on the backend's device.  :func:`make_expert` draws the
+parameters ``module.init(key, ...)`` draws in the JAX package: each
+kernel from flax's key for its module path and ``lecun_normal``'s
+truncated normal through ``random.py`` (JAX's threefry and XLA's f32
+``erf_inv``), so a port server and a JAX server hosting one uid start
+from the same weights.
 
 Numerics follow flax: ``nn.gelu`` is the tanh approximation, LayerNorm
 uses eps 1e-6 and flax's fast variance (mean of squares minus squared
@@ -22,6 +27,7 @@ deterministic-dropout block draws JAX's threefry masks bit for bit
 
 from __future__ import annotations
 
+import hashlib
 import math
 from typing import Callable
 
@@ -32,7 +38,6 @@ from torch import nn
 
 from learning_at_home_tpu_torch import random as jrandom
 from learning_at_home_tpu_torch.device import resolve_device
-from learning_at_home_tpu_torch.initializers import truncated_normal
 
 LAYER_NORM_EPS = 1e-6  # flax's default (the trunk's norm uses 1e-5)
 
@@ -280,41 +285,69 @@ def flat_params(tree: dict) -> dict:
     return out
 
 
-def init_params(module: nn.Module, generator: torch.Generator,
-                device) -> dict:
-    """Fresh parameters for ``module`` with flax's initialisers: Dense and
-    attention kernels ``lecun_normal`` (a truncated normal of std
-    ``1/sqrt(fan_in)``, fan-in the product of the contracted dims), zero
-    biases, unit LayerNorm and Nop scales.  Drawn in the module's
-    parameter order from ``generator``, on ``device``."""
+def flax_param_key(key: torch.Tensor, path, counter: int) -> torch.Tensor:
+    """The key flax's ``module.init(key, ...)`` hands the ``counter``-th
+    parameter (1-based, declaration order) of the module at ``path`` (its
+    names from the root, e.g. ``("MultiHeadDotProductAttention_0",
+    "query")``): ``flax.core.scope._fold_in_static`` of the path and the
+    counter, the first 4 bytes of their SHA-1 (no separators: flax
+    0.12.3's default ``flax_fix_rng_separator=False``) folded into ``key``
+    as one ``fold_in``."""
+    digest = hashlib.sha1()
+    for part in (*path, counter):
+        if isinstance(part, str):
+            digest.update(part.encode("utf-8"))
+        else:
+            digest.update(part.to_bytes((part.bit_length() + 7) // 8, "big"))
+    return jrandom.fold_in(key, int.from_bytes(digest.digest()[:4], "big"))
+
+
+def lecun_std(fan_in: int) -> float:
+    """``lecun_normal``'s std, in f32 as JAX computes it:
+    ``sqrt(f32(1 / fan_in)) / 0.87962566103423978`` (0.8796...: the std
+    of a unit normal truncated to +-2)."""
+    variance = np.float32(1.0 / fan_in)
+    return float(np.float32(np.sqrt(variance))
+                 / np.float32(0.87962566103423978))
+
+
+def init_params(module: nn.Module, key: torch.Tensor, device) -> dict:
+    """``module.init(key, ...)``'s parameters in the JAX package, on
+    ``device`` (drawn there: the draw gives the CPU's values on every
+    device): Dense and attention kernels ``lecun_normal`` (a truncated
+    normal of std ``1/sqrt(fan_in)``, fan-in the product of the contracted
+    dims) from flax's key for the kernel (its module's first parameter),
+    zero biases, unit LayerNorm and Nop scales."""
+    key = key.to(device)
     params = {}
     for name, meta in module.named_parameters():
-        owner = module.get_submodule(name.rpartition(".")[0])
-        leaf = name.rpartition(".")[2]
+        *path, leaf = name.split(".")
         shape = tuple(meta.shape)
         if leaf == "kernel":
-            n_in = getattr(owner, "n_in", 1)
-            fan_in = math.prod(shape[:n_in])
-            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-            value = truncated_normal(shape, std, generator, torch.float32)
+            owner = module.get_submodule(".".join(path))
+            fan_in = math.prod(shape[:getattr(owner, "n_in", 1)])
+            value = jrandom.truncated_normal(
+                flax_param_key(key, path, 1), -2.0, 2.0, shape
+            ) * lecun_std(fan_in)
         elif leaf == "scale":
-            value = torch.ones(shape, device=generator.device)
+            value = torch.ones(shape, device=device)
         else:
-            value = torch.zeros(shape, device=generator.device)
-        params[name] = value.to(device)
+            value = torch.zeros(shape, device=device)
+        params[name] = value
     return params_tree(module, params)
 
 
-def make_expert(expert_cls: str, hidden_dim: int,
-                generator: torch.Generator, dtype=torch.float32,
-                device=None) -> tuple[Callable, dict]:
+def make_expert(expert_cls: str, hidden_dim: int, key: torch.Tensor,
+                dtype=torch.float32, device=None) -> tuple[Callable, dict]:
     """``(apply_fn, params)`` for an ExpertBackend from a registry name:
-    params drawn from ``generator`` onto ``device`` (None: the CUDA card),
-    ``apply_fn(params, *inputs)`` the block applied with them."""
+    the params the JAX package's ``make_expert(expert_cls, hidden_dim,
+    key)`` draws (``key``: a ``random.PRNGKey``), on ``device`` (None: the
+    CUDA card), ``apply_fn(params, *inputs)`` the block applied with
+    them."""
     dev = resolve_device(device)
     with torch.device("meta"):
         module = name_to_block[expert_cls](hidden_dim=hidden_dim, dtype=dtype)
-    params = init_params(module, generator, dev)
+    params = init_params(module, key, dev)
 
     def apply_fn(params, *inputs):
         return torch.func.functional_call(module, flat_params(params), inputs)

@@ -5,7 +5,9 @@ The port's counterpart of the parts of ``jax.random`` that router jitter
 ``generate``) and the deterministic-dropout expert (``models/layers.py``)
 use: :func:`PRNGKey`, :func:`fold_in`, :func:`split`,
 :func:`random_bits`, :func:`uniform`, :func:`bernoulli`, :func:`gumbel`
-and :func:`categorical`, for JAX's default generator
+and :func:`categorical`, and the experts' initialiser (flax's
+``lecun_normal`` in ``models/layers.py``) :func:`truncated_normal`, for
+JAX's default generator
 (``jax_default_prng_impl = "threefry2x32"``) with
 ``jax_threefry_partitionable = True``, the default of JAX 0.9.  With that
 flag, element ``i`` (the row-major index) of a ``random_bits`` draw is
@@ -25,10 +27,16 @@ Everything up to :func:`uniform` is JAX's bit for bit.  :func:`gumbel`
 takes two logarithms, each rounded once from f64 (the correctly rounded
 value), where XLA's logarithm is within one f32 ulp of it: its noise is
 within an ulp of JAX's at each logarithm, so :func:`categorical` picks
-JAX's index except at a tie of that size.
+JAX's index except at a tie of that size.  :func:`truncated_normal`
+follows XLA's f32 arithmetic on the CPU (its logarithms, ``log1p`` and
+``erf_inv`` step by step, fused multiply-adds included): on the JAX
+package's draws it is bit for bit JAX's at all but about one element in
+10^5, and within 2 ulp there.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -201,3 +209,131 @@ def categorical(key: torch.Tensor, logits: torch.Tensor,
     ``axis``."""
     noise = gumbel(key.to(logits.device), tuple(logits.shape), logits.dtype)
     return torch.argmax(noise + logits, dim=axis)
+
+
+# ---- truncated_normal: XLA's f32 arithmetic on the CPU, step by step ----
+
+
+def _f32(value: float, device=None) -> torch.Tensor:
+    return torch.tensor(value, dtype=torch.float32, device=device)
+
+
+# XLA contracts a multiply and an add into one fused multiply-add; f64
+# holds the product of two f32 values exactly, so one rounding of the sum
+# to f32 gives the fused result (but at a double-rounding tie)
+
+
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """``a * b + c`` rounded once to f32 (``b``, ``c``: f32 tensors or
+    Python floats, taken as f32)."""
+    def f64(v):
+        if not isinstance(v, torch.Tensor):
+            v = _f32(v, a.device)
+        return v.double()
+    return (a.double() * f64(b) + f64(c)).float()
+
+
+# XLA's CPU logarithm (Cephes' single-precision log, as XLA emits it)
+_LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
+          -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
+          2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)
+
+
+def _xla_log(x: torch.Tensor) -> torch.Tensor:
+    """XLA's f32 ``log`` on the CPU, for finite ``x > 0``."""
+    bits = torch.clamp(x, min=torch.finfo(torch.float32).tiny).view(
+        torch.int32)
+    e = ((bits >> 23) - 0x7F).float() + 1.0
+    m = ((bits & 0x007FFFFF) | 0x3F000000).view(torch.float32)  # [0.5, 1)
+    small = m < 0.707106781186547524
+    t = (m - 1.0) + torch.where(small, m, torch.zeros_like(m))
+    e = e - small.float()
+    x2 = t * t
+    x3 = x2 * t
+    p = _LOG_P
+    y = _fma(_fma(t, p[0], p[1]), t, p[2])
+    y1 = _fma(_fma(t, p[3], p[4]), t, p[5])
+    y2 = _fma(_fma(t, p[6], p[7]), t, p[8])
+    y = _fma(_fma(y, x3, y1), x3, y2)
+    y = _fma(y, x3, -2.12194440e-4 * e)
+    t = _fma(x2, -0.5, t) + y
+    return _fma(e, 0.693359375, t)
+
+
+# XLA's log1p below sqrt(2) - 1 in magnitude: Cephes' rational function
+_LOG1P_NUM = (2.0039553499201281259648e1, 5.7112963590585538103336e1,
+              6.0949667980987787057556e1, 2.9911919328553073277375e1,
+              6.5787325942061044846969e0, 4.9854102823193375972212e-1,
+              4.5270000862445199635215e-5)
+_LOG1P_DEN = (6.0118660497603843919306e1, 2.1642788614495947685003e2,
+              3.0909872225312059774938e2, 2.2176239823732856465394e2,
+              8.3047565967967209469434e1, 1.5062909083469192043167e1, 1.0)
+
+
+def _horner(x: torch.Tensor, coeffs) -> torch.Tensor:
+    """The polynomial with ``coeffs`` (lowest degree first) at ``x``,
+    Horner's rule in fused multiply-adds from the highest degree."""
+    p = torch.full_like(x, float(_f32(coeffs[-1])))
+    for c in reversed(coeffs[:-1]):
+        p = _fma(p, x, c)
+    return p
+
+
+def _xla_log1p(x: torch.Tensor) -> torch.Tensor:
+    """XLA's f32 ``log1p`` on the CPU, for finite ``x > -1``."""
+    x2 = x * x
+    ratio = _horner(x, _LOG1P_NUM) / _horner(x, _LOG1P_DEN)
+    small = x + _fma(x2, -0.5, (x * x2) * ratio)
+    return torch.where(x.abs() < 0.41421356237309504880, small,
+                       _xla_log(x + 1.0))
+
+
+# XLA's f32 erf_inv: Giles' single-precision approximation (2010),
+# coefficients from the highest degree, for w = -log1p(-x^2) below 5 (in
+# w - 2.5) and above (in sqrt(w) - 3)
+_ERF_INV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                -4.39150654e-06, 0.00021858087, -0.00125372503,
+                -0.00417768164, 0.246640727, 1.50140941)
+_ERF_INV_GT5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+                -0.00367342844, 0.00573950773, -0.0076224613,
+                0.00943887047, 1.00167406, 2.83297682)
+
+
+def _xla_erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """XLA's f32 ``erf_inv`` on the CPU, for ``|x| <= 1``."""
+    w = -_xla_log1p(-(x * x))
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+
+    def coeff(i):
+        return torch.where(lt, _f32(_ERF_INV_LT5[i], x.device),
+                           _f32(_ERF_INV_GT5[i], x.device))
+
+    p = coeff(0)
+    for i in range(1, len(_ERF_INV_LT5)):
+        p = _fma(p, w, coeff(i))
+    return torch.where(x.abs() == 1.0, x * math.inf, p * x)
+
+
+def truncated_normal(key: torch.Tensor, lower: float, upper: float,
+                     shape: tuple[int, ...],
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``jax.random.truncated_normal(key, lower, upper, shape)`` in f32:
+    ``u = uniform(key, minval=erf(lower/sqrt2), maxval=erf(upper/sqrt2))``,
+    then ``sqrt2 * erf_inv(u)`` clipped to the open interval, on the key's
+    device.  After the draw only IEEE-rounded operations run (one torch
+    operation each, none fused), so a CUDA key gives the CPU's values
+    (``chip_smoke.py`` phase 14 holds a card draw to a CPU draw)."""
+    if dtype != torch.float32:
+        raise TypeError(f"truncated_normal takes float32, got {dtype}")
+    dev = key.device
+    sqrt2 = _f32(math.sqrt(2.0))
+    # XLA's f32 erf gives the correctly rounded value at +-2/sqrt2 (the
+    # tests hold the draws against JAX's)
+    a = float(_f32(math.erf(float(_f32(lower) / sqrt2))))
+    b = float(_f32(math.erf(float(_f32(upper) / sqrt2))))
+    u = uniform(key, shape, torch.float32, minval=a, maxval=b)
+    out = sqrt2.to(dev) * _xla_erf_inv(u)
+    lo = torch.nextafter(_f32(lower), _f32(math.inf)).to(dev)
+    hi = torch.nextafter(_f32(upper), _f32(-math.inf)).to(dev)
+    return torch.minimum(torch.maximum(out, lo), hi)

@@ -1,5 +1,6 @@
 """The swarm expert server of the port: experts, their batching, the
-device runtime, the wire handler and the DHT heartbeat (the JAX
+device runtime, the wire handler, the DHT heartbeat and the elastic
+lifecycle: drain, handoff, migration and replicas (the JAX
 package's ``server/``; ``python -m learning_at_home_tpu_torch.server`` is
 its CLI)."""
 

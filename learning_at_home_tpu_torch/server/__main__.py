@@ -10,9 +10,12 @@ join the DHT swarm, declare and heartbeat, serve until interrupted.
 
 The experts run on the CUDA card unless ``--device cpu`` is given (the
 port's counterpart of ``JAX_PLATFORMS``); without a card the server exits
-with an error rather than falling back to the CPU.  The JAX package's
-graceful drain (``--drain-*``) and native transport are not ported: those
-flags exit with an error.
+with an error rather than falling back to the CPU.  ``--drain-on-term``
+makes the first SIGTERM a graceful drain (stop heartbeating, finish
+in-flight batches, hand every expert's params and optimizer state to a
+successor, checkpoint fallback under ``--checkpoint-dir``), as the JAX
+package's; ``--transport native`` serves through the C++ frame pump and
+exits with an error where it cannot be built.
 """
 
 from __future__ import annotations
@@ -20,8 +23,6 @@ from __future__ import annotations
 import argparse
 import signal
 import threading
-
-NOT_PORTED = "is not ported to learning_at_home_tpu_torch yet"
 
 
 def parse_endpoint(s: str) -> tuple[str, int]:
@@ -65,11 +66,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true",
                    help="load the latest checkpoint before serving")
     p.add_argument("--drain-on-term", action="store_true",
-                   help=f"graceful drain on SIGTERM: {NOT_PORTED}")
+                   help="graceful lifecycle: the first SIGTERM DRAINS instead "
+                        "of exiting — stop heartbeating (DHT expiry steers "
+                        "dispatch away), finish in-flight batches, migrate "
+                        "every expert's params+optimizer state to a "
+                        "successor (checkpoint fallback), then exit.  A "
+                        "second SIGTERM forces immediate shutdown")
     p.add_argument("--drain-grace", type=float, default=None,
-                   help=f"drain grace period: {NOT_PORTED}")
+                   help="seconds to keep serving after the drain starts "
+                        "(default: the declared record TTL, 2 x "
+                        "--update-period, so published records expire)")
     p.add_argument("--drain-successor", default=None,
-                   help=f"drain migration target: {NOT_PORTED}")
+                   help="host:port to migrate experts to on drain "
+                        "(default: least-loaded peer from the load.* "
+                        "DHT heartbeats)")
     p.add_argument("--warmup", type=int, nargs="*", default=None,
                    help="record fwd/bwd batch buckets before serving (e.g. "
                         "--warmup 64 256 1024); no value = all power-of-2 "
@@ -80,8 +90,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "under (telemetry.<prefix>)")
     p.add_argument("--transport", default="asyncio",
                    choices=["asyncio", "native"],
-                   help="data plane: the asyncio loop (the native frame "
-                        f"pump {NOT_PORTED})")
+                   help="data plane: asyncio loop, or the C++ epoll "
+                        "framepump (GIL-free socket work; multi-core hosts)")
     p.add_argument("--chaos-latency", type=float, default=0.0,
                    help="inject WAN-like base latency (seconds) per request")
     p.add_argument("--chaos-jitter", type=float, default=0.0)
@@ -96,21 +106,9 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def refuse_unported(p: argparse.ArgumentParser, args) -> None:
-    """Exit with an error for the JAX CLI's flags whose machinery the port
-    does not have yet, rather than silently ignoring them."""
-    if args.drain_on_term or args.drain_grace is not None \
-            or args.drain_successor is not None:
-        p.error(f"graceful drain (--drain-on-term, --drain-grace, "
-                f"--drain-successor) {NOT_PORTED}")
-    if args.transport == "native":
-        p.error(f"--transport native (the C++ frame pump) {NOT_PORTED}")
-
-
 def main(argv=None) -> None:
     p = build_parser()
     args = p.parse_args(argv)
-    refuse_unported(p, args)
 
     import logging
 
@@ -176,10 +174,14 @@ def main(argv=None) -> None:
         port=args.port,
         dht=dht,
         update_period=args.update_period,
+        transport=args.transport,
         telemetry_prefix=args.telemetry_prefix,
         chaos=chaos,
     )
     experts = server.experts
+    # replicas installed via the ``replica`` RPC and the drain fallback
+    # restore from THIS server's checkpoint root (never peer-supplied)
+    server.replica_checkpoint_root = args.checkpoint_dir
     server.run_in_background()
     ckpt_mgr = None
     if args.checkpoint_dir:
@@ -201,8 +203,12 @@ def main(argv=None) -> None:
             lambda step: server.save_checkpoint(args.checkpoint_dir, step),
             args.checkpoint_every,
         )
-    span = (f"({sorted(experts)[0]}..{sorted(experts)[-1]}) "
-            if experts else "")
+        server.checkpoint_manager = ckpt_mgr
+    span = (
+        f"({sorted(experts)[0]}..{sorted(experts)[-1]}) " if experts
+        # a server may boot EMPTY and gain experts via replica RPCs
+        else "(none yet — replica-host mode) "
+    )
     print(
         f"serving {len(experts)} {args.expert_cls!r} experts {span}on "
         f"{server.endpoint[0]}:{server.endpoint[1]} ({device}; metrics "
@@ -211,12 +217,36 @@ def main(argv=None) -> None:
     )
 
     stop = threading.Event()
+    drain_req = threading.Event()
+
+    def on_term(*_):
+        # first SIGTERM with --drain-on-term: graceful drain (handled by
+        # the main loop — a signal handler must not block through the
+        # whole sequence); second SIGTERM, or no drain flag: exit now
+        if args.drain_on_term and not drain_req.is_set():
+            drain_req.set()
+        else:
+            stop.set()
+
     signal.signal(signal.SIGINT, lambda *_: stop.set())
-    signal.signal(signal.SIGTERM, lambda *_: stop.set())
+    signal.signal(signal.SIGTERM, on_term)
+    successor = (
+        parse_endpoint(args.drain_successor) if args.drain_successor else None
+    )
+    drained = False
     while not stop.wait(timeout=0.5):
-        pass
-    if ckpt_mgr is not None:
-        # stop the periodic thread first: racing it on next_step() could
+        if drain_req.is_set() and not drained:
+            drained = True
+            print("SIGTERM: draining (migrate experts, then exit) ...",
+                  flush=True)
+            server.start_drain(successor=successor, grace=args.drain_grace)
+        if drained and server.wait_drained(timeout=0.0):
+            print(f"drain complete: {server.drain_summary}", flush=True)
+            break
+    if ckpt_mgr is not None and not drained:
+        # a drain already checkpointed whatever it could not hand off;
+        # the plain-shutdown path snapshots everything here instead.
+        # Stop the periodic thread FIRST: racing it on next_step() could
         # mark a torn two-writer snapshot complete
         ckpt_mgr.stop()
         step = ckpt_mgr.save_now(

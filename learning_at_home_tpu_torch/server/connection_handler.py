@@ -1,9 +1,5 @@
 """Server-side RPC dispatch: forward / backward / info over framed TCP.
 
-The port's copy of the JAX package's ``server/connection_handler.py``:
-the same wire, ops and validation; ``replica``, ``handoff``, ``migrate``
-and ``drain`` answer with an ``error`` frame (``LATER_OPS``).
-
 Contract from the reference's ``hivemind/server/connection_handler.py``
 (SURVEY.md §2; unverifiable refs, mount empty): accept connections, parse
 message type, deserialize tensors, submit to the right expert's pool, await
@@ -83,16 +79,6 @@ logger = logging.getLogger(__name__)
 # codecs with per-tensor headers — serialization.py, docs/PROTOCOL.md);
 # clients never offer quantized payloads to peers that did not echo it.
 SERVER_FEATURES = ("mux", "codec")
-
-# Control-plane ops of the JAX package's handler that the port does not
-# serve yet (graceful drain, live migration, replicas): each is answered
-# with an ``error`` frame naming what is missing.
-LATER_OPS = {
-    "replica": "expert replicas (add_replica, ReplicaSync) are not ported",
-    "handoff": "live expert migration (server/lifecycle.py) is not ported",
-    "migrate": "live expert migration (server/lifecycle.py) is not ported",
-    "drain": "graceful drain (server/lifecycle.py) is not ported",
-}
 
 # Reply payloads at least this large (decoded bytes) quantize in the
 # default executor, not on the serving loop — the server-side mirror of
@@ -606,13 +592,110 @@ class ConnectionHandler:
                     if backend is None:
                         raise ValueError(f"unknown expert uid: {uid!r}")
                     return reply("result", meta=backend.get_info())
-                elif msg_type in LATER_OPS:
-                    # the lifecycle and replication control plane is not
-                    # in the port yet: never answer it with a success
+                elif msg_type == "replica":
+                    # rebalancer control plane (ISSUE 8): host a replica
+                    # of ``uid`` here.  The request carries ONLY the uid
+                    # (+ the sync flag) — checkpoint location is this
+                    # server's own configuration, never peer-supplied.
+                    if not isinstance(uid, str) or not uid:
+                        raise ValueError("replica request needs a uid")
+                    installed = await self.server.add_replica_async(
+                        uid, sync=bool(meta.get("sync"))
+                    )
                     return reply(
-                        "error",
-                        meta={"message": f"{msg_type!r} is not supported "
-                              f"by this server: {LATER_OPS[msg_type]}"},
+                        "result",
+                        meta={
+                            "uid": uid,
+                            "installed": bool(installed),
+                            "hosted": uid in self.server.experts,
+                        },
+                    )
+                elif msg_type == "handoff":
+                    # live expert migration (ISSUE 9): a draining peer
+                    # streams one expert's params+opt state here in
+                    # sequential parts; the receiver installs and
+                    # declares the uid only after a bitwise-verified
+                    # install.  Always the RAW wire — a quantized
+                    # payload cannot be bitwise by construction.
+                    if wire is not None:
+                        raise ValueError(
+                            "handoff must travel the raw wire (no wire "
+                            "meta): migration is bitwise or it failed"
+                        )
+                    return reply(
+                        "result",
+                        meta=await self.server.handoff.handle_part(
+                            meta, tensors
+                        ),
+                    )
+                elif msg_type == "migrate":
+                    # placement actuation (ISSUE 16): move ONE hosted
+                    # expert to an explicit target over the handoff
+                    # wire, on the lah-migrate thread — handoff first,
+                    # retire only after the bitwise-verified install
+                    # (run_drain's per-uid order), so the uid's hoster
+                    # count never dips mid-move.  Reply is immediate;
+                    # callers watch the stats RPC's placement section.
+                    if not isinstance(uid, str) or not uid:
+                        raise ValueError("migrate request needs a uid")
+                    target = meta["target"]
+                    if not (
+                        isinstance(target, (list, tuple))
+                        and len(target) == 2
+                        and isinstance(target[0], str)
+                        and isinstance(target[1], int)
+                    ):
+                        raise ValueError(
+                            "migrate target must be [host, port]"
+                        )
+                    kwargs = {}
+                    timeout_s = meta.get("timeout")
+                    if timeout_s is not None:
+                        kwargs["timeout"] = min(
+                            600.0, max(1.0, float(timeout_s))
+                        )
+                    started = self.server.start_migration(
+                        uid, (target[0], target[1]), **kwargs
+                    )
+                    return reply(
+                        "result",
+                        meta={
+                            "uid": uid,
+                            "started": bool(started),
+                            "state": self.server.lifecycle_state,
+                        },
+                    )
+                elif msg_type == "drain":
+                    # graceful-drain trigger (ISSUE 9): flip the server
+                    # into the drain sequence on its lah-drain thread
+                    # and reply immediately — callers watch the stats
+                    # RPC's lifecycle section (or process exit)
+                    kwargs = {}
+                    successor = meta.get("successor")
+                    if successor is not None:
+                        if not (
+                            isinstance(successor, (list, tuple))
+                            and len(successor) == 2
+                            and isinstance(successor[0], str)
+                            and isinstance(successor[1], int)
+                        ):
+                            raise ValueError(
+                                "drain successor must be [host, port]"
+                            )
+                        kwargs["successor"] = (successor[0], successor[1])
+                    grace = meta.get("grace")
+                    if grace is not None:
+                        kwargs["grace"] = float(grace)
+                    if meta.get("handoff") is not None:
+                        kwargs["handoff"] = bool(meta.get("handoff"))
+                    started = self.server.start_drain(**kwargs)
+                    return reply(
+                        "result",
+                        meta={
+                            "draining": True,
+                            "started": bool(started),
+                            "state": self.server.lifecycle_state,
+                        },
                     )
                 elif msg_type == "stats":
                     return reply(

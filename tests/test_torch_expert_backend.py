@@ -32,6 +32,7 @@ from learning_at_home_tpu.server.expert_backend import (
 )
 from learning_at_home_tpu_torch import optim
 from learning_at_home_tpu_torch.convert import expert_from_jax, expert_to_jax
+from learning_at_home_tpu_torch.random import PRNGKey
 from learning_at_home_tpu_torch.models.layers import make_expert, name_to_block
 from learning_at_home_tpu_torch.server.expert_backend import ExpertBackend
 from learning_at_home_tpu_torch.utils.nested import nested_flatten
@@ -58,7 +59,7 @@ def _pair(name, opt):
                     max_batch_size=64)
     tparams, tstate = expert_from_jax(_np(jb.params), _np(jb.opt_state),
                                       device="cpu")
-    tapply, _ = make_expert(name, H, torch.Generator().manual_seed(0),
+    tapply, _ = make_expert(name, H, PRNGKey(0),
                             device="cpu")
     tb = ExpertBackend(name, tapply, tparams, topt(), opt_state=tstate,
                        n_inputs=n_in, max_batch_size=64, device="cpu")
@@ -272,6 +273,6 @@ def test_grad_mode_is_set_by_the_backend():
 
 def test_backend_without_a_device_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    apply_fn, params = make_expert("nop", H, torch.Generator(), device="cpu")
+    apply_fn, params = make_expert("nop", H, PRNGKey(0), device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ExpertBackend("x", apply_fn, params, optim.sgd(LR))

@@ -20,6 +20,7 @@ import torch
 from learning_at_home_tpu.models.layers import make_expert as jax_make_expert
 from learning_at_home_tpu_torch.convert import expert_from_jax, expert_to_jax
 from learning_at_home_tpu_torch.models import layers
+from learning_at_home_tpu_torch.random import PRNGKey
 from learning_at_home_tpu_torch.models.layers import (
     DeterministicDropoutBlock,
     make_expert,
@@ -36,7 +37,7 @@ BLOCKS = sorted(name_to_block)
 def _pair(name, seed=1):
     """(JAX apply, JAX params, port apply, port params) on one init."""
     japply, jparams = jax_make_expert(name, H, jax.random.PRNGKey(seed))
-    tapply, _ = make_expert(name, H, torch.Generator().manual_seed(0),
+    tapply, _ = make_expert(name, H, PRNGKey(0),
                             device="cpu")
     np_params = jax.tree_util.tree_map(np.asarray, jparams)
     tparams, _ = expert_from_jax(np_params, device="cpu")
@@ -69,7 +70,7 @@ def test_param_tree_is_flax_tree(name):
     """Same nesting, names, shapes and dtypes as flax's init; the port's
     own init draws flax's distributions (zero biases, unit scales)."""
     _, jparams = jax_make_expert(name, H, jax.random.PRNGKey(0))
-    _, tparams = make_expert(name, H, torch.Generator().manual_seed(0),
+    _, tparams = make_expert(name, H, PRNGKey(0),
                              device="cpu")
     jspec = jax.tree_util.tree_map(lambda a: (a.shape, str(a.dtype)), jparams)
     tspec = jax.tree_util.tree_map(
@@ -88,7 +89,7 @@ def test_init_draws_lecun_normal():
     """Dense kernels: a truncated normal of std 1/sqrt(fan_in), as
     flax's ``lecun_normal``; attention projections by their contracted
     dims (out: heads*head_dim)."""
-    _, p = make_expert("transformer", 256, torch.Generator().manual_seed(3),
+    _, p = make_expert("transformer", 256, PRNGKey(3),
                        device="cpu")
     p = p["params"]
     for kernel, fan_in in ((p["Dense_0"]["kernel"], 256),
@@ -204,4 +205,4 @@ def test_params_round_trip_bitwise(name):
 def test_make_expert_without_a_device_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        make_expert("ffn", H, torch.Generator().manual_seed(0))
+        make_expert("ffn", H, PRNGKey(0))

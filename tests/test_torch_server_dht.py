@@ -11,9 +11,9 @@
   the grid picks; a trainer's ``TelemetryPublisher`` heartbeats into it.
 - ``python -m learning_at_home_tpu_torch.server --device cpu`` boots,
   declares its experts through the DHT and answers the port's and the JAX
-  package's clients; the JAX CLI's flags whose machinery the port lacks
-  (graceful drain, the native transport) exit with an error, and without
-  a card and without ``--device`` the CLI raises instead of falling back.
+  package's clients; it takes the JAX CLI's graceful-drain and native
+  transport flags, and without a card and without ``--device`` the CLI
+  raises instead of falling back.
 """
 
 import contextlib
@@ -202,10 +202,18 @@ def test_telemetry_publisher_heartbeats_a_trainer():
     ["--drain-successor", "127.0.0.1:1"], ["--transport", "native"],
 ])
 def test_cli_refuses_unported_flags(flags, capsys):
-    with pytest.raises(SystemExit) as e:
-        cli.main(["--no-dht", "--device", "cpu", *flags])
-    assert e.value.code == 2
-    assert "not ported" in capsys.readouterr().err
+    """The JAX CLI's drain and transport flags are ported: none is refused
+    any more, each parses into its value (the drain and native paths run
+    in tests/test_torch_lifecycle.py and test_torch_native.py)."""
+    want = {"--drain-on-term": ("drain_on_term", True),
+            "--drain-grace": ("drain_grace", 3.0),
+            "--drain-successor": ("drain_successor", "127.0.0.1:1"),
+            "--transport": ("transport", "native")}[flags[0]]
+    args = cli.build_parser().parse_args(["--no-dht", "--device", "cpu",
+                                          *flags])
+    assert getattr(args, want[0]) == want[1]
+    assert not hasattr(cli, "refuse_unported")
+    assert capsys.readouterr().err == ""
 
 
 def test_cli_without_a_card_raises(monkeypatch):

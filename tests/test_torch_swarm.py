@@ -376,9 +376,15 @@ def test_stats_info_and_later_ops():
         assert info["num_params"] == sum(
             t.numel() for t in jax.tree_util.tree_leaves(
                 srv.experts["ms.2"].params))
-        for op in ("drain", "replica", "handoff", "migrate"):
-            with pytest.raises(Exception, match="not ported"):
-                _rpc(ep, op, {"uid": "ms.0"})
+        # the elastic ops are served as the JAX package serves them
+        _, rep = _rpc(ep, "replica", {"uid": "ms.0"})
+        assert rep == {"uid": "ms.0", "installed": False, "hosted": True}
+        with pytest.raises(Exception, match="session"):
+            _rpc(ep, "handoff", {"uid": "ms.0"})
+        with pytest.raises(Exception, match="target"):
+            _rpc(ep, "migrate", {"uid": "ms.0"})
+        with pytest.raises(Exception, match="successor"):
+            _rpc(ep, "drain", {"successor": "nowhere"})
         assert srv.lifecycle_state == "SERVING"
         assert all(b.update_count == 0 for b in srv.experts.values())
         from learning_at_home_tpu_torch.utils.telemetry import fetch_json

@@ -10,7 +10,11 @@ products in other orders (~1e-6 relative to the terms, which may be far
 larger than the sum), so outputs, gradients and sgd updates are held at
 the CPU tests' bar for dot products of 16 (2e-5) scaled by sqrt(H / 16)
 for products H long, as ``chip_smoke.py``'s card-against-CPU swarm check
-scales it: ``atol = rtol = 4e-5`` at H = 64.
+scales it: ``atol = rtol = 4e-5`` at H = 64; plus, for the terms summed,
+``c * eps_f32 * sqrt(H) * max|ref|`` per output: a gate gradient sums
+terms as large as its largest element into elements far smaller.  Each
+f32 side is held against the same step in f64 on the CPU (the witness)
+at c = 2, the two sides against each other at c = 4.
 """
 
 import asyncio
@@ -25,14 +29,35 @@ import torch
 from learning_at_home_tpu_torch.client.moe import RemoteMixtureOfExperts
 from learning_at_home_tpu_torch.client.routing import StaticExpertSource
 from learning_at_home_tpu_torch.client.rpc import reset_client_rpc
+from learning_at_home_tpu_torch.models.layers import make_expert
 from learning_at_home_tpu_torch.optim import sgd
+from learning_at_home_tpu_torch.random import PRNGKey
 from learning_at_home_tpu_torch.server.runtime import Runtime
 from learning_at_home_tpu_torch.server.server import Server, background_server
 from learning_at_home_tpu_torch.server.task_pool import BatchJob
+from learning_at_home_tpu_torch.tree import tree_leaves, tree_map
 
 H = 64
 N = 4
 TOL = dict(atol=2e-5 * (H / 16) ** 0.5, rtol=2e-5 * (H / 16) ** 0.5)
+LR = 0.05
+EPS = float(np.finfo(np.float32).eps)
+
+
+def _assert_close(got, ref, c: float, what: str) -> float:
+    """|got - ref| within TOL's bar plus c f32 roundings of terms as large
+    as ref's largest element, summed sqrt(H) deep.  Returns the largest
+    |got - ref| in units of ``eps_f32 * sqrt(H) * max|ref|``."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    err = np.abs(got - ref)
+    scale = EPS * H ** 0.5 * float(np.abs(ref).max())
+    bar = TOL["atol"] + TOL["rtol"] * np.abs(ref) + c * scale
+    worst = int(np.argmax(err - bar))
+    assert (err <= bar).all(), (
+        f"{what}: |err| {err.flat[worst]:.3e} at ref "
+        f"{ref.flat[worst]:.3e} over its bar {bar.flat[worst]:.3e} "
+        f"(max|ref| {np.abs(ref).max():.3e})")
+    return float(err.max()) / scale if scale else 0.0
 
 
 @pytest.fixture
@@ -55,9 +80,9 @@ def _clean_client():
 def _twin_servers():
     """The same 4 ffn experts on the card and on the CPU."""
     with background_server(num_experts=N, hidden_dim=H, expert_prefix="cu",
-                           optimizer=sgd(0.05), device="cuda") as (ep_c, gpu):
+                           optimizer=sgd(LR), device="cuda") as (ep_c, gpu):
         with background_server(num_experts=N, hidden_dim=H,
-                               expert_prefix="cu", optimizer=sgd(0.05),
+                               expert_prefix="cu", optimizer=sgd(LR),
                                device="cpu") as (ep_h, cpu):
             for uid, b in gpu.experts.items():
                 cpu.experts[uid].load_state_dict(b.state_dict())
@@ -76,6 +101,88 @@ def _step(ep, gate, x, cot):
     return y.detach().numpy(), xt.grad.numpy(), g["w0"].grad.numpy()
 
 
+def _witness_step(params, gate, x, cot):
+    """The same step in f64 on the CPU: the mixture's output and its x and
+    gate gradients (top-2 of the gate's logits, softmax over the two,
+    every expert answering), and each expert's sgd update applied to
+    ``params`` (uid -> its f64 tree)."""
+    apply_fn = make_expert("ffn", H, PRNGKey(0), dtype=torch.float64,
+                           device="cpu")[0]
+    xt = torch.tensor(x, dtype=torch.float64, requires_grad=True)
+    w0 = torch.tensor(gate["w0"], dtype=torch.float64, requires_grad=True)
+    trees = {uid: tree_map(lambda t: t.detach().requires_grad_(True), p)
+             for uid, p in params.items()}
+    logits = xt @ w0
+    top = torch.topk(logits.detach(), 2, dim=1).indices
+    outs = torch.stack([apply_fn(trees[f"cu.{e}"], xt) for e in range(N)], 1)
+    chosen = torch.gather(outs, 1, top[..., None].expand(-1, -1, H))
+    weights = torch.softmax(torch.gather(logits, 1, top), dim=-1)
+    y = torch.einsum("bk,bkd->bd", weights, chosen)
+    (y * torch.tensor(cot, dtype=torch.float64)).sum().backward()
+    for uid, tree in trees.items():
+        params[uid] = tree_map(
+            lambda t: (t - LR * t.grad if t.grad is not None else t).detach(),
+            tree)
+    return y.detach().numpy(), xt.grad.numpy(), w0.grad.numpy()
+
+
+def _f64_params(server) -> dict:
+    return {uid: tree_map(lambda t: torch.tensor(np.asarray(t),
+                                                 dtype=torch.float64),
+                          b.state_dict()["params"])
+            for uid, b in server.experts.items()}
+
+
+def _dense_1(params) -> list:
+    return tree_leaves(params["params"]["Dense_1"])
+
+
+def _steps_against_the_witness(sides, gate, rng) -> dict:
+    """Three steps of every ``(label, endpoint, server)`` side from the
+    same state, each output held against the f64 witness at c = 2 and
+    the sides against the first at c = 4; then each expert's Dense_1
+    after the steps.  Prints each side's largest error in units of
+    ``eps_f32 * sqrt(H) * max|ref|`` (``pytest -s`` shows it)."""
+    witness = _f64_params(sides[0][2])
+    worst = {}
+    for step in range(3):
+        x = rng.standard_normal((32, H)).astype(np.float32)
+        cot = rng.standard_normal((32, H)).astype(np.float32)
+        ref = _witness_step(witness, gate, x, cot)
+        outs = [_step(ep, gate, x, cot) for _, ep, _ in sides]
+        for (label, _, _), out in zip(sides, outs):
+            for name, a, b, first in zip(("y", "x grad", "gate grad"),
+                                         out, ref, outs[0]):
+                units = [
+                    _assert_close(a, b, 2, f"step {step} {label} {name}"),
+                    _assert_close(a, first, 4, f"step {step} {label} "
+                                  f"{name} against {sides[0][0]}")]
+                for key, u in zip((f"{label} {name} vs f64",
+                                   f"{label} {name} vs {sides[0][0]}"),
+                                  units):
+                    worst[key] = max(worst.get(key, 0.0), u)
+    for label, _, srv in sides:
+        for uid, backend in srv.experts.items():
+            assert backend.update_count == 3
+            for a, b in zip(_dense_1(backend.state_dict()["params"]),
+                            _dense_1(witness[uid])):
+                _assert_close(a, b.numpy(), 2, f"{label} {uid} Dense_1")
+    print("largest |err| / (eps_f32 sqrt(H) max|ref|) over 3 steps: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in worst.items()
+                      if not k.endswith(f"vs {sides[0][0]}")
+                      or not k.startswith(sides[0][0])))
+
+
+def test_cpu_server_matches_an_f64_witness():
+    """The witness itself, on the CPU server alone: three steps of the
+    mixture through a CPU server agree with the same steps in f64."""
+    rng = np.random.default_rng(0)
+    gate = {"w0": (rng.standard_normal((H, N)) / 8).astype(np.float32)}
+    with background_server(num_experts=N, hidden_dim=H, expert_prefix="cu",
+                           optimizer=sgd(LR), device="cpu") as (ep, cpu):
+        _steps_against_the_witness([("cpu", ep, cpu)], gate, rng)
+
+
 @pytest.mark.cuda
 def test_server_on_the_card_matches_the_cpu_server(card):
     rng = np.random.default_rng(0)
@@ -84,20 +191,8 @@ def test_server_on_the_card_matches_the_cpu_server(card):
         for b in gpu.experts.values():
             assert all(t.is_cuda for t in b.params["params"]["Dense_0"]
                        .values())
-        for _ in range(3):
-            x = rng.standard_normal((32, H)).astype(np.float32)
-            cot = rng.standard_normal((32, H)).astype(np.float32)
-            got, want = _step(ep_c, gate, x, cot), _step(ep_h, gate, x, cot)
-            for a, b in zip(got, want):
-                np.testing.assert_allclose(a, b, **TOL)
-        for uid in gpu.experts:
-            assert gpu.experts[uid].update_count == \
-                cpu.experts[uid].update_count
-            for a, b in zip(gpu.experts[uid].state_dict()["params"]
-                            ["params"]["Dense_1"].values(),
-                            cpu.experts[uid].state_dict()["params"]
-                            ["params"]["Dense_1"].values()):
-                np.testing.assert_allclose(a, b, **TOL)
+        _steps_against_the_witness(
+            [("cpu", ep_h, cpu), ("card", ep_c, gpu)], gate, rng)
 
 
 @pytest.mark.cuda

@@ -1,9 +1,10 @@
 """The port's framework-free copies against the JAX package's originals.
 
 - The verbatim copies (``utils/{sanitizer,flight,asyncio_utils,
-  connection,sketch,metrics}.py``, ``server/{staging,task_pool,chaos}.py``,
-  ``client/routing.py``) are the originals' text with the package name
-  changed in imports, nothing else.
+  connection,sketch,metrics}.py``, ``server/{staging,task_pool,chaos,
+  connection_handler}.py``, ``client/routing.py``,
+  ``averaging/{matchmaking,handler,averager}.py``) are the originals'
+  text with the package name changed in imports, nothing else.
 - The wire (``utils/serialization.py``, whose only change is a JAX-free
   ``is_float_dtype``): frames of every codec (``none``, ``bf16``, ``f16``,
   ``u8``, ``blockq8``) are the JAX package's bit for bit, and each side
@@ -34,7 +35,9 @@ VERBATIM = [
     "utils/sanitizer.py", "utils/flight.py", "utils/asyncio_utils.py",
     "utils/connection.py", "utils/sketch.py", "utils/metrics.py",
     "server/staging.py", "server/task_pool.py", "server/chaos.py",
-    "client/routing.py",
+    "server/connection_handler.py", "client/routing.py",
+    "averaging/matchmaking.py", "averaging/handler.py",
+    "averaging/averager.py",
 ]
 
 
