@@ -137,8 +137,10 @@ Phases, each of which asserts (none catches its own failure):
                CPU: twin swarms of 2 layers, grid (4,), d 64 (server
                processes and trainer on the card; the same on the CPU;
                crc32-seeded experts) give step 1's loss and every trunk
-               and gate gradient within 2e-4 + 2e-4 |ref|.  No kernel of
-               the kernels line is on this path (0 launches).
+               and gate gradient within 2e-4 + 2e-4 |ref|, and a paged KV
+               decoder on each (page_len 5) the same greedy tokens, the
+               logits behind each first token within the same bar.  No
+               kernel of the kernels line is on this path (0 launches).
 
 14. elastic -- ``swarm-elastic-d512``: config 3's width (d 512, 8 heads,
                seq 256, byte vocabulary, grid (16, 16), top-2, 256 ``ffn``
@@ -178,6 +180,36 @@ Phases, each of which asserts (none catches its own failure):
                expert's init time at hidden 512.  No kernel of the
                kernels line is on this path (0 launches).
 
+15. gateway  -- ``gateway swarm-dmoe-4l-256e-d512``: config 3 served from
+               phase 13's four server processes and its trained params,
+               before they stop, through a port ``Gateway`` on the card (8
+               slots, the paged KV layout at page_len 16, the prefix
+               cache, coalescing, prefill in chunks of 16 tokens; the
+               wire pinned to f32, every expert reply awaited).  16
+               streams, twice the slots, submitted at once through a
+               ``GatewayClient``: prompts of 32-128 bytes of the synthetic
+               corpus, every other one sharing a 64-byte prefix, 64 new
+               tokens each, 12 greedy and 4 sampled (temperature 0.8,
+               top-p 0.9, top-k 40, a seed each).  Asserts: one row
+               through a card server alone and in batches of 2-16 and
+               259 rows has the same output bits; every
+               stream's tokens equal a bare dense decoder's with
+               ungrouped dispatches (paged against dense, coalesced
+               against solo); a second gateway with spec_k 4 (the n-gram
+               drafter) and unchunked prefill gives the same tokens for
+               every stream; two greedy streams' first 8 tokens equal the
+               re-forward argmax chain through ``model.apply``; the
+               scheduler's and the pool's audits are empty; dispatches
+               were coalesced and the prefix cache hit.  Prints, beside
+               the card's name and
+               power limit, TTFT and inter-token p50/p95, tokens/s, the
+               experts called a decode step, group dispatches and the
+               dispatches coalescing avoided, prefix-hit tokens, peak
+               pages, speculative acceptance, the peak card memory and
+               the card's busy share over the second gateway's decode
+               loop (under ``torch.profiler``).  No kernel of the kernels
+               line is on this path (0 launches).
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA card or
 without the repository's package beside it.
@@ -185,8 +217,10 @@ without the repository's package beside it.
 ``python3 chip_smoke.py --kernels-only [flash|ce]`` runs phases 1-3 and
 phase 12's timings of K5 and K1-K3 (or of one family; no model path, no
 kernels line): a kernel change's quick check and its times.
-``python3 chip_smoke.py --swarm-lm-only`` runs phases 1 and 13 (no kernel
-is built, no kernels line); ``--elastic-only`` runs phases 1 and 14.
+``python3 chip_smoke.py --swarm-lm-only`` runs phases 1, 13 and 15 (no
+kernel is built, no kernels line); ``--elastic-only`` runs phases 1 and 14;
+``--gateway-only`` runs phase 1, phase 13's servers (no training) and
+phase 15 on key-seeded params, then the twins' check.
 """
 
 from __future__ import annotations
@@ -227,11 +261,15 @@ from learning_at_home_tpu_torch.client.rpc import (
     reset_client_rpc,
 )
 from learning_at_home_tpu_torch.dht import DHT
+from learning_at_home_tpu_torch.gateway import Gateway, GatewayClient
 from learning_at_home_tpu_torch.models.data import (
     VOCAB_SIZE,
     LMBatcher,
     load_corpus,
 )
+from learning_at_home_tpu_torch.models import swarm_decoder
+from learning_at_home_tpu_torch.models.sampling import SamplingParams
+from learning_at_home_tpu_torch.models.swarm_decoder import SwarmKVDecoder
 from learning_at_home_tpu_torch.models.transformer import (
     DMoETransformerConfig,
     DMoETransformerLM,
@@ -249,7 +287,10 @@ from learning_at_home_tpu_torch.ops.fused_adafactor import fused_adafactor
 from learning_at_home_tpu_torch.parallel import sharded_moe
 from learning_at_home_tpu_torch.models.layers import make_expert
 from learning_at_home_tpu_torch.server import lifecycle
-from learning_at_home_tpu_torch.server.expert_backend import ExpertBackend
+from learning_at_home_tpu_torch.server.expert_backend import (
+    ROW_TILE,
+    ExpertBackend,
+)
 from learning_at_home_tpu_torch.server.server import Server, uid_key
 from learning_at_home_tpu_torch.utils import telemetry
 from learning_at_home_tpu_torch.utils.nested import nested_flatten
@@ -378,6 +419,26 @@ ELASTIC_GRACE_S = 1.0
 ELASTIC_STEPS_AROUND = 3  # timed steps before and after the drain
 ELASTIC_DRAIN_S = 600.0  # the deadline for A to reach DRAINED
 ELASTIC_SYNC_S = 120.0  # the deadline for a replica sync round per uid
+# phase 15 (gateway swarm-dmoe-4l-256e-d512): config 3 served through a
+# port Gateway on the card (8 slots, the paged KV layout at page_len 16,
+# the prefix cache, coalescing, chunked prefill of 16 tokens a pass) from
+# phase 13's servers; the serving model pins the wire to f32, the gate
+# blind to routing cost and every expert reply awaited, so the token
+# contracts hold bitwise (the JAX gateway tests pin the same)
+GATEWAY = dict(SWARM_LM, wire_codec="none", routing_cost_weight=0,
+               timeout_after_k_min=SWARM_CHECK_GRACE_S)
+GATEWAY_SLOTS, GATEWAY_PAGE_LEN, GATEWAY_CHUNK = 8, 16, 16
+GATEWAY_STREAMS, GATEWAY_NEW = 16, 64  # twice the slots: admission queues
+GATEWAY_PROMPT = (32, 128)  # bytes of the synthetic corpus
+GATEWAY_PREFIX = 64  # the bytes every other prompt shares
+GATEWAY_SAMPLED = (1, 4, 9, 14)  # the sampled streams (the rest greedy)
+GATEWAY_SAMPLING = dict(temperature=0.8, top_p=0.9, top_k=40)
+GATEWAY_SPEC_K = 4
+# streams held against the re-forward argmax chain, and their tokens
+# held (each token a full forward of every stream's sequence: ~0.8 s)
+GATEWAY_REFORWARD, GATEWAY_REFORWARD_TOKENS = 2, 8
+GATEWAY_DEADLINE_S = 300.0  # for every stream of one arm to finish
+GATEWAY_POLL_S = 0.1  # the client's pause between rounds of polls
 # the main paths' kernel shapes: [B,S,H,hd] of one flagship-8k prefill
 # layer and of one flagship-8k-train layer; [n, d, V] of each training
 # configuration's CE
@@ -705,7 +766,7 @@ def small_reference() -> None:
                                 dtype=torch.float32)
     cpu = DMoETransformerLM(cfg, device="cpu")
     gpu = DMoETransformerLM(cfg, device="cuda")
-    params = cpu.init_params(torch.Generator().manual_seed(SEED))
+    params = cpu.init_params(prng.PRNGKey(SEED))
     params_gpu = tree_to(params, "cuda")
     ids = torch.randint(0, 256, (2, 32), generator=torch.Generator().manual_seed(1))
     want = cpu.apply(params, ids)[0]
@@ -733,7 +794,7 @@ def small_train_reference(counters) -> None:
         num_experts=4, k=2, dtype=torch.bfloat16, ce_impl="fused",
         remat=True, stack_layers=False, scan_layers=False)
     models = {dev: DMoETransformerLM(cfg, device=dev) for dev in ("cpu", "cuda")}
-    params = models["cpu"].init_params(torch.Generator().manual_seed(SEED))
+    params = models["cpu"].init_params(prng.PRNGKey(SEED))
     gen = torch.Generator().manual_seed(2)
     ids = torch.randint(0, 2048, (8, 16), generator=gen)
     tgt = torch.randint(0, 2048, (8, 16), generator=gen)
@@ -825,7 +886,7 @@ def serve_flagship(counters, plans: list) -> dict:
     cfg = DMoETransformerConfig(**FLAGSHIP_8K)
     model = DMoETransformerLM(cfg, device="cuda")
     assert model.cfg.attn_impl == "flash", model.cfg.attn_impl
-    params = model.init_params(torch.Generator(device="cuda").manual_seed(SEED))
+    params = model.init_params(prng.PRNGKey(SEED))
     n_params = sum(t.numel() for t in tree_leaves(params))
     batch, prompt_len, new = 2, 4096, 32
     prompts = torch.randint(
@@ -896,7 +957,7 @@ def build_train(name: str):
     model = DMoETransformerLM(cfg, device="cuda")
     want = "flash" if cfg.seq_len >= 8192 else "xla"
     assert model.cfg.attn_impl == want, model.cfg.attn_impl
-    params = model.init_params(torch.Generator(device="cuda").manual_seed(SEED))
+    params = model.init_params(prng.PRNGKey(SEED))
     optimizer = fused_adafactor(1e-3)
     opt_state = model.init_opt_state(optimizer, params)
     step = model.make_train_step(optimizer)
@@ -1361,7 +1422,8 @@ def swarm(counters, card: str = "cuda") -> dict:
               f"{card_srv.experts['swarm.0'].get_info()['num_params']} a "
               f"expert; warm buckets "
               f"{sorted(card_srv.experts['swarm.0'].warm_buckets)}")
-        gate = swarm_client(card_srv.endpoint).init_gate_params(gen)
+        gate = swarm_client(card_srv.endpoint).init_gate_params(
+            prng.PRNGKey(SEED, device=card))
         x = torch.randn((rows, hidden), generator=gen, device=card)
         target = torch.tanh(
             x @ torch.randn((hidden, hidden), generator=gen, device=card)
@@ -1473,6 +1535,25 @@ def swarm(counters, card: str = "cuda") -> dict:
               f"{rt1['jobs_overlapped'] - rt0['jobs_overlapped']} "
               f"overlapped): " + ", ".join(
                   f"{k[:-3]} {v:.4f} ms" for k, v in per_job.items()))
+        if card == "cuda":
+            # the Runtime's forward job: ExpertBackend.forward in row
+            # tiles (a row's bits then do not depend on its batch), and
+            # the same batch as one product, the forward before the tiles
+            backend = card_srv.experts["swarm.0"]
+
+            def one_batch():
+                with torch.no_grad():
+                    return backend._apply(backend.params,
+                                          backend._inputs(host_x))
+
+            for n in (rows, 1):
+                host_x = [x[:n].detach().cpu().numpy()]
+                tiled, whole = (median_ms(lambda: backend.forward(host_x)),
+                                median_ms(one_batch))
+                print(f"  ExpertBackend.forward of {n} x {hidden}: "
+                      f"{ROW_TILE['cuda']}-row tiles {tiled:.4f} ms, one "
+                      f"batch (the forward before the tiles) {whole:.4f} ms "
+                      f"[{card}]")
         swarm_breakdown(run, card)
         gate = opt["gate"]
 
@@ -1639,7 +1720,9 @@ def count_forward_replies(moe) -> dict:
 def swarm_lm_twins(card: str) -> None:
     """Card against CPU: step 1's loss and every trunk and gate gradient of
     the twin swarms (see SWARM_LM_TWIN), within SWARM_TOL + SWARM_TOL
-    |ref|."""
+    |ref|; then (phase 15) a paged KV decoder on each twin: the same
+    greedy tokens, the logits behind each first token within the same
+    bar."""
     devices = ("cuda", "cpu")
     cfg = SwarmTransformerConfig(**SWARM_LM_TWIN)
     rs = np.random.RandomState(SEED)
@@ -1656,7 +1739,7 @@ def swarm_lm_twins(card: str) -> None:
                                         cfg.grid_size),
                               cfg.d_model, boots[i].endpoint, dev,
                               SWARM_LM_SERVER)
-        got = []
+        got, decoded = [], []
         for dev, boot in zip(devices, boots):
             dht = DHT(initial_peers=[boot.endpoint])
             try:
@@ -1664,12 +1747,14 @@ def swarm_lm_twins(card: str) -> None:
                                                 in range(cfg.n_layers)],
                                  cfg.n_layers * math.prod(cfg.grid_size), 120)
                 model = SwarmDMoETransformerLM(cfg, dht)
-                params = model.init_params(
-                    torch.Generator().manual_seed(SEED), device=dev)
+                params = model.init_params(prng.PRNGKey(SEED), device=dev)
                 loss, grads = optim.value_and_grad(model.loss_fn)(
                     params, ids, tgt)
                 got.append((loss, grads,
                             [m.selection_log[-1] for m in model.moes]))
+                blind = SwarmDMoETransformerLM(SwarmTransformerConfig(
+                    **SWARM_LM_TWIN, routing_cost_weight=0), dht)
+                decoded.append(twin_decoders(blind, params, dev))
             finally:
                 dht.shutdown()
         (loss_c, g_c, sel_c), (loss_h, g_h, sel_h) = got
@@ -1682,6 +1767,13 @@ def swarm_lm_twins(card: str) -> None:
               f"{float(loss_h):.6f}; max |err| over loss and "
               f"{len(errs) - 1} gradient leaves {max(errs):.3g} (bar "
               f"{SWARM_TOL:.0e} + {SWARM_TOL:.0e} |ref|) [{card}]")
+        (toks_c, logits_c), (toks_h, logits_h) = decoded
+        assert toks_c == toks_h, (toks_c, toks_h)
+        errs = [_close(a, b, "decoder prefill logits", SWARM_TOL, SWARM_TOL)
+                for a, b in zip(logits_c, logits_h)]
+        print(f"  twins' paged decoders, card against cpu: the same "
+              f"{sum(map(len, toks_c))} greedy tokens; prefill logits max "
+              f"|err| {max(errs):.3g} [{card}]")
     finally:
         servers.stop()
         for boot in boots:
@@ -1714,9 +1806,12 @@ def swarm_lm_busy(run, card: str):
     return out
 
 
-def swarm_lm(counters, card: str) -> dict:
-    """Phase 13 (see the module docstring).  Returns the kernels' launch
-    counts of its main path (the training steps)."""
+def swarm_lm(counters, card: str, train: bool = True) -> tuple[dict, dict]:
+    """Phase 13 (see the module docstring), then phase 15 on its servers
+    and trained params; ``train=False`` brings the servers up and serves
+    key-seeded params without training.  Returns the kernels' launch
+    counts of each phase's main path (phase 13's training steps, empty
+    without training; phase 15's first gateway arm)."""
     t_phase = time.perf_counter()
     cfg = SwarmTransformerConfig(**SWARM_LM)
     n_experts = math.prod(cfg.grid_size)
@@ -1741,11 +1836,16 @@ def swarm_lm(counters, card: str) -> dict:
               f"node joined ({time.perf_counter() - t_phase:.1f} s after "
               f"the processes started) [{card}]")
 
+        if not train:
+            phase("gateway swarm-dmoe-4l-256e-d512")
+            params = SwarmDMoETransformerLM(cfg, dht).init_params(
+                prng.PRNGKey(SEED), device="cuda")
+            return {}, serve_gateway(counters, card, dht, params)
         model = SwarmDMoETransformerLM(cfg, dht)
         replies = [count_forward_replies(m) for m in model.moes]
         opt = optim.adamw(SWARM_LM_LR)
-        run = {"params": model.init_params(
-            torch.Generator().manual_seed(SEED), device="cuda")}
+        run = {"params": model.init_params(prng.PRNGKey(SEED),
+                                              device="cuda")}
         run["state"] = opt.init(run["params"])
         batches = LMBatcher(load_corpus(seed=SEED), SWARM_LM_BATCH,
                             cfg.seq_len, seed=SEED)
@@ -1895,13 +1995,313 @@ def swarm_lm(counters, card: str) -> dict:
               f"[{card}]")
         servers.check()
         print(f"swarm-lm phase: {time.perf_counter() - t_phase:.1f} s")
-        return counts
+        phase("gateway swarm-dmoe-4l-256e-d512")
+        gateway_counts = serve_gateway(counters, card, dht, run["params"])
+        servers.check()
+        return counts, gateway_counts
     finally:
         servers.stop()
         if dht is not None:
             dht.shutdown()
         boot.shutdown()
         reset_client_rpc()
+
+
+# ---- phase 15: the serving gateway ----
+
+
+def gateway_prompts() -> tuple[list, list]:
+    """GATEWAY_STREAMS prompts of GATEWAY_PROMPT bytes of the synthetic
+    corpus, every other one starting with the same GATEWAY_PREFIX bytes,
+    and each stream's sampling (None: greedy)."""
+    rs = np.random.RandomState(SEED + 15)
+    corpus = load_corpus(seed=SEED)
+    shared = corpus[:GATEWAY_PREFIX].tolist()
+    prompts, sampling = [], []
+    for i in range(GATEWAY_STREAMS):
+        lo = GATEWAY_PREFIX + 1 if i % 2 == 0 else GATEWAY_PROMPT[0]
+        n = int(rs.randint(lo, GATEWAY_PROMPT[1] + 1))
+        start = int(rs.randint(GATEWAY_PREFIX, len(corpus) - n))
+        body = corpus[start:start + n].tolist()
+        prompts.append(shared + body[:n - GATEWAY_PREFIX] if i % 2 == 0
+                       else body)
+        sampling.append(SamplingParams(seed=SEED + 100 + i,
+                                       **GATEWAY_SAMPLING)
+                        if i in GATEWAY_SAMPLED else None)
+    return prompts, sampling
+
+
+class DecodeLog:
+    """Wraps a gateway decoder's ``decode_step`` and ``verify_step``
+    (called on the ``lah-gw-decode`` thread) to record each call's end
+    time, the streams it advanced, the experts it called (the MoE layers'
+    selection logs, summed over layers) and the pages in use after it;
+    measurement only."""
+
+    def __init__(self, decoder, moes) -> None:
+        self.steps: list[tuple[float, list, int]] = []
+        self.peak_pages = 0
+        for name in ("decode_step", "verify_step"):
+            setattr(decoder, name,
+                    self._wrap(decoder, getattr(decoder, name), moes))
+
+    def _wrap(self, dec, inner, moes):
+        def run(*args):
+            before = [len(m.selection_log) for m in moes]
+            if args:  # verify_step's proposals: slot -> drafts
+                sids = [dec.stream_ids[int(s)] for s in args[0]]
+            else:
+                sids = [sid for _, sid in dec.live_slots()]
+            out = inner(*args)
+            called = 0
+            for m, n in zip(moes, before):
+                new = list(m.selection_log)[n:]
+                called += len(frozenset().union(*new)) if new else 0
+            self.steps.append((time.perf_counter(), sids, called))
+            if dec.kv is not None:
+                self.peak_pages = max(self.peak_pages, dec.kv.pages_used())
+            return out
+
+        return run
+
+    def inter_token_ms(self) -> list:
+        """Each stream's intervals between the decode steps that gave it a
+        token, ms (the first token comes from its prefill)."""
+        last, out = {}, []
+        for t, sids, _ in self.steps:
+            for sid in sids:
+                if sid in last:
+                    out.append((t - last[sid]) * 1e3)
+                last[sid] = t
+        return out
+
+
+def pcts(values) -> tuple[float, float]:
+    """(p50, p95) of ``values``."""
+    q = statistics.quantiles(values, n=100, method="inclusive")
+    return q[49], q[94]
+
+
+def gateway_arm(model, params, prompts, sampling, *, spec_k: int,
+                chunk: int, card: str, profile: bool = False) -> dict:
+    """Every prompt submitted at once through a ``GatewayClient`` to a
+    fresh card ``Gateway`` (a shed is retried after its ``retry_after_s``)
+    and polled until every stream is done; returns the tokens, the
+    streams' times and the gateway's counters."""
+    gw = Gateway(model, params, max_slots=GATEWAY_SLOTS, coalesce=True,
+                 kv_layout="paged", page_len=GATEWAY_PAGE_LEN,
+                 prefix_cache=True, prefill_chunk_tokens=chunk,
+                 spec_k=spec_k, spec_drafter="ngram",
+                 max_pending=GATEWAY_STREAMS, device="cuda")
+    try:
+        log = DecodeLog(gw.decoder, model.moes)
+        client = GatewayClient(gw.endpoint)
+        prof = (torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) if profile
+            else contextlib.nullcontext())
+        torch.cuda.synchronize()
+        with prof:
+            t0 = time.perf_counter()
+            sids, sheds = [], 0
+            for prompt, sp in zip(prompts, sampling):
+                kw = {} if sp is None else dict(
+                    seed=sp.seed, temperature=sp.temperature, top_p=sp.top_p,
+                    top_k=sp.top_k)
+                for _ in range(100):
+                    sub = client.submit(prompt, GATEWAY_NEW, **kw)
+                    if sub.get("accepted"):
+                        break
+                    sheds += 1
+                    time.sleep(float(sub["retry_after_s"]))
+                assert sub.get("accepted"), f"stream never admitted: {sub}"
+                sids.append(sub["sid"])
+            tokens = {sid: [] for sid in sids}
+            open_sids = set(sids)
+            t_end = time.perf_counter() + GATEWAY_DEADLINE_S
+            while open_sids:
+                assert time.perf_counter() < t_end, \
+                    f"{len(open_sids)} streams unfinished at the deadline"
+                for sid in sorted(open_sids):
+                    out = client.poll(sid, len(tokens[sid]))
+                    tokens[sid].extend(int(t) for t in out.get("tokens") or [])
+                    if out.get("done"):
+                        assert out.get("error") is None, out
+                        open_sids.discard(sid)
+                # the polls share the host with the decode thread: seldom
+                # enough not to slow it (TTFT and inter-token times are
+                # the scheduler's own, not the polls')
+                time.sleep(GATEWAY_POLL_S)
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+        with gw.scheduler._lock:
+            states = [gw.scheduler._streams[sid] for sid in sids]
+        ttft = [(st.first_token_at - st.submitted_at) * 1e3 for st in states]
+        span = (max(st.finished_at for st in states)
+                - min(st.submitted_at for st in states))
+        result = {
+            "tokens": [tokens[sid] for sid in sids],
+            "ttft_ms": ttft, "itl_ms": log.inter_token_ms(),
+            "tokens_per_s": sum(len(t) for t in tokens.values()) / span,
+            "experts": [n for _, _, n in log.steps],
+            "steps": len(log.steps), "peak_pages": log.peak_pages,
+            "sheds": sheds, "wall_s": wall,
+            "stats": gw.gateway_stats(),
+            "audit": gw.scheduler.audit() + gw.decoder.kv.audit(),
+        }
+        if profile:
+            rows = [e for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy = sum(e.self_device_time_total for e in rows) / 1e3
+            result["busy"] = (busy, wall * 1e3)
+        return result
+    finally:
+        gw.shutdown()
+
+
+def reforward_chain(model, params, prompts, n: int) -> list:
+    """Greedy tokens of full re-forwards through ``model.apply``, the
+    streams batched with right padding (causal: a row's logits at its
+    last position do not see the padding)."""
+    seqs = [list(p) for p in prompts]
+    out = [[] for _ in prompts]
+    for _ in range(n):
+        width = max(len(q) for q in seqs)
+        ids = np.zeros((len(seqs), width), np.int64)
+        for i, q in enumerate(seqs):
+            ids[i, :len(q)] = q
+        with torch.no_grad():
+            logits = model.apply(params, torch.from_numpy(ids).cuda())
+        for i, q in enumerate(seqs):
+            tok = int(logits[i, len(q) - 1].argmax())
+            out[i].append(tok)
+            q.append(tok)
+    return out
+
+
+def check_row_invariance(dht, prefix: str, hidden: int, card: str) -> None:
+    """One row through a card server of the swarm alone, then at the
+    first, middle and last position of batches of 2..16 rows and of one
+    row tile and 3: its output bits must not change (the coalescing
+    contract rests on this)."""
+    alive = client_loop().run(dht.get_alive_experts_fresh(prefix))
+    uid = sorted(alive)[0]
+    expert = RemoteExpert(uid, alive[uid])
+    rs = np.random.RandomState(SEED)
+    row = rs.randn(1, hidden).astype(np.float32)
+    solo = expert.forward_blocking([row])[0][0]
+    sizes = list(range(2, 17)) + [ROW_TILE["cuda"] + 3]
+    for m in sizes:
+        for pos in sorted({0, m // 2, m - 1}):
+            batch = rs.randn(m, hidden).astype(np.float32)
+            batch[pos] = row[0]
+            out = expert.forward_blocking([batch])[0]
+            assert np.array_equal(out[pos], solo), (uid, m, pos)
+    print(f"  row invariance: one row of {uid} alone and in batches of "
+          f"{sizes[0]}-{sizes[-2]} and {sizes[-1]} rows, the same bits "
+          f"[{card}]")
+
+
+def serve_gateway(counters, card: str, dht, params) -> dict:
+    """Phase 15 (see the module docstring) on phase 13's servers, found
+    through ``dht``; returns the kernels' launch counts of its main path
+    (the gateway's first arm)."""
+    t_phase = time.perf_counter()
+    model = SwarmDMoETransformerLM(SwarmTransformerConfig(**GATEWAY), dht)
+    check_row_invariance(dht, f"{model.cfg.uid_prefix}0", model.cfg.d_model,
+                         card)
+    prompts, sampling = gateway_prompts()
+    greedy = [i for i, sp in enumerate(sampling) if sp is None]
+    print(f"  {len(prompts)} streams ({len(greedy)} greedy, "
+          f"{len(prompts) - len(greedy)} sampled at {GATEWAY_SAMPLING}), "
+          f"prompts of {min(map(len, prompts))}-{max(map(len, prompts))} "
+          f"bytes, every other one sharing its first {GATEWAY_PREFIX}; "
+          f"{GATEWAY_NEW} new tokens each; {GATEWAY_SLOTS} slots")
+    # the reference: a bare dense decoder with ungrouped dispatches
+    t0 = time.perf_counter()
+    ref = []
+    for i in range(0, len(prompts), GATEWAY_SLOTS):
+        dec = SwarmKVDecoder(model, params, max_slots=GATEWAY_SLOTS,
+                             device="cuda")
+        ref += dec.generate(prompts[i:i + GATEWAY_SLOTS], GATEWAY_NEW,
+                            sampling=sampling[i:i + GATEWAY_SLOTS])
+    print(f"  bare dense ungrouped decoder: {time.perf_counter() - t0:.1f} s")
+
+    reset_counts(counters)
+    torch.cuda.reset_peak_memory_stats()
+    main = gateway_arm(model, params, prompts, sampling, spec_k=0,
+                       chunk=GATEWAY_CHUNK, card=card)
+    counts = read_counts(counters)
+    peak = torch.cuda.max_memory_allocated()
+    assert main["tokens"] == ref, [
+        i for i, (a, b) in enumerate(zip(main["tokens"], ref)) if a != b]
+    assert main["audit"] == [], main["audit"]
+    st = main["stats"]
+    ttft, itl = pcts(main["ttft_ms"]), pcts(main["itl_ms"])
+    print(f"  gateway (paged, page_len {GATEWAY_PAGE_LEN}, prefix cache, "
+          f"coalescing, prefill chunks of {GATEWAY_CHUNK}): TTFT p50 "
+          f"{ttft[0]:.3f} ms p95 {ttft[1]:.3f} ms; inter-token p50 "
+          f"{itl[0]:.3f} ms p95 {itl[1]:.3f} ms; {main['tokens_per_s']:.1f} "
+          f"tokens/s over {len(prompts)} streams ({main['wall_s']:.2f} s, "
+          f"{main['steps']} decode steps, {main['sheds']} sheds) [{card}]")
+    print(f"  experts called a decode step ({len(model.moes)} layers): median "
+          f"{statistics.median(main['experts']):.0f}, max "
+          f"{max(main['experts'])}; group dispatches "
+          f"{st['group_dispatches_total']}, coalesced dispatches avoided "
+          f"{st['coalesced_dispatches_total']}; prefix-hit tokens "
+          f"{st['prefix_hit_tokens_total']} ({st['prefix_hits_total']} hits),"
+          f" peak pages {main['peak_pages']} of {st['kv_pages_total']}; "
+          f"preemptions {st['preemptions_total']}; peak card memory "
+          f"{peak / 1e9:.3f} GB [{card}]")
+    assert st["coalesced_dispatches_total"] > 0, "nothing was coalesced"
+    assert st["prefix_hit_tokens_total"] > 0, "no prefix hit"
+
+    spec = gateway_arm(model, params, prompts, sampling,
+                       spec_k=GATEWAY_SPEC_K, chunk=0, card=card,
+                       profile=True)
+    assert spec["tokens"] == main["tokens"], [
+        i for i, (a, b) in enumerate(zip(spec["tokens"], main["tokens"]))
+        if a != b]
+    assert spec["audit"] == [], spec["audit"]
+    sst = spec["stats"]
+    busy, wall_ms = spec["busy"]
+    print(f"  spec_k {GATEWAY_SPEC_K} (ngram drafter), prefill unchunked: "
+          f"the same tokens for every stream; acceptance "
+          f"{sst['spec_acceptance_rate']:.4f} ({sst['spec_accepted_total']}/"
+          f"{sst['spec_proposed_total']} drafts), "
+          f"{sst['spec_effective_k']:.3f} tokens a round over "
+          f"{sst['spec_rounds_total']} rounds; under the profiler: card busy "
+          f"{busy:.3f} ms of {wall_ms:.3f} ms wall, busy share "
+          f"{busy / wall_ms:.4f} [{card}]")
+    chain = reforward_chain(model, params,
+                            [prompts[i] for i in greedy[:GATEWAY_REFORWARD]],
+                            GATEWAY_REFORWARD_TOKENS)
+    assert chain == [main["tokens"][i][:GATEWAY_REFORWARD_TOKENS]
+                     for i in greedy[:GATEWAY_REFORWARD]]
+    print(f"  {GATEWAY_REFORWARD} greedy streams' first "
+          f"{GATEWAY_REFORWARD_TOKENS} tokens equal the re-forward argmax "
+          f"chain through model.apply; launches on this path: {counts}")
+    print(f"gateway phase: {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def twin_decoders(model, params, dev: str) -> tuple[list, list]:
+    """Greedy tokens of a paged card-or-CPU decoder on two prompts, and
+    the logits behind each first token."""
+    seen, inner = [], swarm_decoder.sample_token
+
+    def record(logits, sp, position):
+        seen.append(torch.as_tensor(logits).float().cpu())
+        return inner(logits, sp, position)
+
+    swarm_decoder.sample_token = record
+    try:
+        dec = SwarmKVDecoder(model, params, max_slots=2, device=dev,
+                             kv_layout="paged", page_len=5)
+        toks = dec.generate([[1, 2, 3, 4, 5, 6, 7], [200, 201, 202]], 16)
+    finally:
+        swarm_decoder.sample_token = inner
+    return toks, seen[:2]
 
 
 # ---- phase 14: the elastic swarm ----
@@ -2082,8 +2482,8 @@ def elastic(counters, card: str) -> dict:
         # (1) averaging: two trainers at once, each session starting its
         # background round from notify_step after ELASTIC_AVG_STEPS steps
         trainers = [PipelinedSwarmTrainer(
-            m, opt, m.init_params(torch.Generator().manual_seed(SEED + i),
-                                  device="cuda"), n_workers=1)
+            m, opt, m.init_params(prng.PRNGKey(SEED + i), device="cuda"),
+            n_workers=1)
             for i, m in enumerate(models)]
         for node, trainer in zip(nodes, trainers):
             session = AveragingSession(DecentralizedAverager(
@@ -2601,9 +3001,13 @@ def main() -> int:
                     help="phases 1-3 and the kernel timings of phase 12, of "
                          "all kernels or of one family")
     ap.add_argument("--swarm-lm-only", action="store_true",
-                    help="phases 1 and 13 only (no kernel is built)")
+                    help="phases 1, 13 and 15 only (no kernel is built)")
     ap.add_argument("--elastic-only", action="store_true",
                     help="phases 1 and 14 only (no kernel is built)")
+    ap.add_argument("--gateway-only", action="store_true",
+                    help="phases 1 and 15 only, on phase 13's servers "
+                         "serving key-seeded params (no training, no "
+                         "kernel is built), and the twins' decoders")
     args = ap.parse_args()
     phase("device")
     if not torch.cuda.is_available():
@@ -2621,9 +3025,9 @@ def main() -> int:
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}")
-    if args.swarm_lm_only:
+    if args.swarm_lm_only or args.gateway_only:
         phase("swarm LM swarm-dmoe-4l-256e-d512")
-        swarm_lm(counters, card)
+        swarm_lm(counters, card, train=not args.gateway_only)
         swarm_lm_twins(card)
         print(card)
         return 0
@@ -2679,8 +3083,9 @@ def main() -> int:
     time_jitter_noise()
 
     phase("swarm LM swarm-dmoe-4l-256e-d512")
-    launches["swarm-dmoe-4l-256e-d512 (train steps)"] = swarm_lm(counters,
-                                                                  card)
+    (launches["swarm-dmoe-4l-256e-d512 (train steps)"],
+     launches["gateway swarm-dmoe-4l-256e-d512 (16 streams)"]) = swarm_lm(
+        counters, card)
     swarm_lm_twins(card)
 
     phase("elastic swarm-elastic-d512")

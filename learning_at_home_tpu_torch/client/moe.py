@@ -47,6 +47,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from learning_at_home_tpu_torch import random as jrandom
 from learning_at_home_tpu_torch.client.routing import (
     CachedAliveSet,
     ExpertSource,
@@ -94,7 +95,7 @@ class RemoteMixtureOfExperts:
 
         moe = RemoteMixtureOfExperts(in_features=1024, grid_size=(32, 32),
                                      uid_prefix="ffn", source=dht_or_static)
-        gate = moe.init_gate_params(torch.Generator().manual_seed(0))
+        gate = moe.init_gate_params(random.PRNGKey(0))
         y = moe(x, gate)                      # differentiable
         loss(y).backward()                    # backward RPCs happen inside
 
@@ -440,16 +441,15 @@ class RemoteMixtureOfExperts:
 
     # ---- gate parameters ----
 
-    def init_gate_params(self, generator: torch.Generator) -> dict:
+    def init_gate_params(self, rng: torch.Tensor) -> dict:
         """One ``[in_features, grid_d]`` normal(0, 1/in_features) matrix
-        per grid dimension, drawn from ``generator`` on its device (the
-        JAX package's distribution; its values differ)."""
+        per grid dimension from ``split(rng, n_dims)``, on the key's
+        device: the JAX package's values for the same key."""
+        keys = jrandom.split(rng, self.n_dims)
         scale = 1.0 / np.sqrt(self.in_features)
         return {
-            f"w{d}": torch.randn(
-                (self.in_features, g), generator=generator,
-                device=generator.device, dtype=self.compute_dtype,
-            ) * scale
+            f"w{d}": jrandom.normal(keys[d], (self.in_features, g),
+                                    self.compute_dtype) * scale
             for d, g in enumerate(self.grid_size)
         }
 

@@ -1,0 +1,1022 @@
+"""Continuous-batching slot scheduler: the gateway's decode engine.
+
+One dedicated daemon thread (``lah-gw-decode``) EXCLUSIVELY owns the
+:class:`SwarmKVDecoder` — its slot table, KV caches/page pool and
+per-slot scalars are never touched from any other thread or loop
+(docs/CONCURRENCY.md invariant 12).  The loop it runs is the whole
+continuous-batching policy:
+
+1. evict streams cancelled since the last pass (slot + KV pages freed);
+2. admit pending streams into free slots — under the paged layout this
+   only CLAIMS the slot and serves the prefix cache
+   (:meth:`begin_prefill`); the prompt forward itself runs in step 3.
+   With ``prefill_chunk_tokens=0`` (or a dense decoder) admission does
+   the whole prefill serially, the PR-12 legacy behaviour kept as the
+   bench A/B arm;
+3. **chunked prefill**: a fixed token budget per pass is spent
+   round-robin across mid-prefill slots (:meth:`prefill_step`), so one
+   long prompt costs every running stream at most one chunk of extra
+   inter-token latency instead of its whole prefill;
+4. one :meth:`decode_step` advances EVERY live stream by one token —
+   arrivals join at token boundaries, nothing waits for a batch drain;
+5. streams that hit their token budget or cache capacity vacate their
+   slot immediately.
+
+With ``spec_k > 0`` and a drafter, step 4 becomes a **speculative
+verify round** instead: each live stream's drafter proposes up to
+``spec_k`` continuation tokens from its committed context, and ONE
+batched :meth:`~learning_at_home_tpu_torch.models.swarm_decoder.
+SwarmKVDecoder.verify_step` checks every drafted position for every
+stream in a single trunk pass — one coalesced expert fan-out per layer
+buys up to ``spec_k + 1`` tokens per stream per round-trip, with
+output token-identical to non-speculative decoding (the counter-based
+RNG makes acceptance an exact recomputation, models/sampling.py).
+
+Page pressure (paged layout only) is resolved by **preemption and
+recompute**: the youngest stream that cannot get a page is evicted and
+requeued at the FRONT of the pending queue with an effective prompt of
+``prompt + tokens-so-far`` — counter-based (seed, position) decoding
+makes the recomputed continuation token-identical for greedy and
+sampled streams alike, so clients only ever observe added latency,
+never changed output.
+
+Everything the FRONT DOOR touches (the stream table, the pending queue,
+per-stream token buffers) is guarded by the ``gateway.streams`` lock with
+short critical sections; the decoder itself needs no lock because only
+this thread calls it.  Stream results for clients that never poll again
+are garbage-collected after ``LAH_GW_STREAM_TTL_S`` (default 600 s).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import logging
+import os
+import threading
+import time
+import uuid
+from collections import deque
+from typing import Optional
+
+from learning_at_home_tpu_torch.models.kv_pages import PagePressure
+from learning_at_home_tpu_torch.utils import flight, sanitizer
+from learning_at_home_tpu_torch.utils.metrics import registry
+from learning_at_home_tpu_torch.utils.profiling import timeline
+
+logger = logging.getLogger(__name__)
+
+_DEFAULT_STREAM_TTL_S = 600.0
+_DEFAULT_PREFILL_CHUNK = 32
+_DEFAULT_SPEC_K = 0  # speculative decode off unless opted in
+
+
+def _monotonic() -> float:
+    """Clock seam: every internal timestamp flows through here so the
+    lah-verify interleaving explorer can drive the scheduler on a virtual
+    clock (deterministic TTL-GC / age ordering across replayed schedules)."""
+    return time.monotonic()
+
+
+# Machine-checked invariants over this module, in the shape lah-verify
+# aggregates: (name, what the checker asserts).  ``scheduler.*`` names are
+# enforced by :meth:`SlotScheduler.audit` on every explored interleaving;
+# the quiesce leak check runs at claimed-idle points under LAH_SANITIZE=1.
+# docs/CONCURRENCY.md "Verified invariants" mirrors this table.
+VERIFIED_INVARIANTS = (
+    ("scheduler.slot_unique",
+     "no two non-done streams ever reference the same decoder slot"),
+    ("scheduler.done_slotless",
+     "a done stream holds no slot (slot freed before done is set)"),
+    ("scheduler.counter_conservation",
+     "streams_total == finished + errored + cancelled + still-open "
+     "(catches _finish double-counting a stream)"),
+    ("scheduler.slot_table_consistent",
+     "every decoder-side live/prefilling slot is owned by exactly one "
+     "non-done stream (no leaked or doubly-owned slots)"),
+    ("scheduler.quiesce_baseline",
+     "at scheduler idle (no open streams, empty queue) no slot is in "
+     "use and the KV page pool accounting is internally consistent"),
+    ("scheduler.spec_prefix_accept",
+     "a speculative verify round commits exactly the longest matched "
+     "draft prefix plus the bonus sample — never a token at or past "
+     "the first mismatch (recomputed from the decoder's last_verify "
+     "record on every audit)"),
+)
+
+
+@dataclasses.dataclass
+class StreamState:
+    sid: str
+    prompt: list
+    max_new_tokens: int
+    tokens: list = dataclasses.field(default_factory=list)
+    done: bool = False
+    error: Optional[str] = None
+    cancelled: bool = False
+    slot: Optional[int] = None
+    prefilling: bool = False
+    sampling: Optional[object] = None  # SamplingParams (None = greedy)
+    submitted_at: float = dataclasses.field(
+        default_factory=lambda: _monotonic()
+    )
+    first_token_at: Optional[float] = None
+    finished_at: Optional[float] = None
+    # serving-trace id (ISSUE 19): rides every lifecycle span + poll reply
+    trace: Optional[str] = None
+    # times this stream lost its slot (>0 ⇒ next admit is a recompute)
+    preemptions: int = 0
+    # last time the stream entered the pending queue (submit or preempt
+    # requeue) — start of the "pending wait" span recorded at slot assign
+    queued_at: float = 0.0
+
+
+class SlotScheduler:
+    """Stream table + the ``lah-gw-decode`` thread driving the decoder."""
+
+    def __init__(
+        self,
+        decoder,
+        *,
+        idle_wait_s: float = 0.02,
+        stream_ttl_s: Optional[float] = None,
+        prefill_chunk_tokens: Optional[int] = None,
+        spec_k: Optional[int] = None,
+        drafter=None,
+    ):
+        self.decoder = decoder
+        self.idle_wait_s = idle_wait_s
+        if stream_ttl_s is None:
+            try:
+                stream_ttl_s = float(
+                    os.environ.get("LAH_GW_STREAM_TTL_S",
+                                   str(_DEFAULT_STREAM_TTL_S))
+                )
+            except ValueError:
+                stream_ttl_s = _DEFAULT_STREAM_TTL_S
+        self.stream_ttl_s = stream_ttl_s
+        if prefill_chunk_tokens is None:
+            try:
+                prefill_chunk_tokens = int(
+                    os.environ.get("LAH_GW_PREFILL_CHUNK",
+                                   str(_DEFAULT_PREFILL_CHUNK))
+                )
+            except ValueError:
+                prefill_chunk_tokens = _DEFAULT_PREFILL_CHUNK
+        # 0 = serial prefill at admission (legacy/bench arm); chunking
+        # also needs a paged decoder
+        self.prefill_chunk_tokens = max(0, int(prefill_chunk_tokens))
+        self.chunked = (
+            self.decoder.supports_chunked_prefill
+            and self.prefill_chunk_tokens > 0
+        )
+        if spec_k is None:
+            try:
+                spec_k = int(
+                    os.environ.get("LAH_GW_SPEC_K", str(_DEFAULT_SPEC_K))
+                )
+            except ValueError:
+                spec_k = _DEFAULT_SPEC_K
+        self.spec_k = max(0, int(spec_k))
+        self.drafter = drafter
+        # speculation needs both a positive k and someone to draft;
+        # either missing keeps decode_step as the exact legacy path
+        self.speculative = self.spec_k > 0 and drafter is not None
+        self._lock = sanitizer.lock("gateway.streams")
+        self._streams: dict[str, StreamState] = {}
+        self._pending: deque[str] = deque()
+        self._wake = threading.Event()
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._sid_counter = itertools.count()
+        self._sid_salt = uuid.uuid4().hex[:6]
+        self._prefill_rr = 0  # round-robin cursor over mid-prefill slots
+        # counters (read by metrics collector / stats; guarded by _lock)
+        self.streams_total = 0
+        self.streams_finished_total = 0
+        self.streams_errored_total = 0
+        self.streams_cancelled_total = 0
+        self.tokens_total = 0
+        self.preemptions_total = 0
+        # speculative-decode counters (acceptance rate = accepted /
+        # proposed; effective k = tokens / rounds)
+        self.spec_rounds_total = 0
+        self.spec_proposed_total = 0
+        self.spec_accepted_total = 0
+        self.spec_tokens_total = 0
+        self.spec_draft_seconds_total = 0.0
+        self.spec_verify_seconds_total = 0.0
+        # TTFT SLO feed (utils/slo.py burn-rate evaluator): every first
+        # token counts one event; slower than ``ttft_target_s`` counts it
+        # bad.  The Gateway sets the target from its SLO spec.
+        self.ttft_target_s: Optional[float] = None
+        self.ttft_events_total = 0
+        self.ttft_slow_total = 0
+        # decode-step wall time EMA (seconds) — the admission controller's
+        # retry-after scale
+        self.step_time_ema: Optional[float] = None
+        self._last_gc = _monotonic()
+        # resource-leak audit at claimed-idle points (sanitizer-gated;
+        # no-op in production).  Per-instance site so one scheduler's
+        # quiesce check never reads another's mid-work state; bound
+        # method held weakly, so no unregister needed on teardown.
+        self._quiesce_site = f"gateway.scheduler.{id(self):x}"
+        sanitizer.register_quiesce_audit(self._quiesce_site,
+                                         self._quiesce_audit)
+
+    # ---- lifecycle ----
+
+    def start(self) -> "SlotScheduler":
+        if self._thread is not None:
+            return self
+        self._stop.clear()
+        self._thread = threading.Thread(
+            target=self._run, name="lah-gw-decode", daemon=True
+        )
+        self._thread.start()
+        return self
+
+    def shutdown(self, timeout: float = 10.0) -> None:
+        self._stop.set()
+        self._wake.set()
+        if self._thread is not None:
+            self._thread.join(timeout=timeout)
+            self._thread = None
+
+    # ---- front-door surface (any thread/loop; short lock sections) ----
+
+    def submit(
+        self, prompt, max_new_tokens: int, sampling=None, trace=None
+    ) -> str:
+        """Enqueue a stream; returns its sid.  Admission (shed/accept) is
+        the caller's job — this never refuses.  ``sampling`` is an
+        optional :class:`~learning_at_home_tpu_torch.models.sampling.
+        SamplingParams` (None = greedy); ``trace`` an optional validated
+        16-hex serving-trace id stamped onto every lifecycle span."""
+        sid = f"s{next(self._sid_counter)}-{self._sid_salt}"
+        st = StreamState(
+            sid=sid, prompt=list(prompt),
+            max_new_tokens=int(max_new_tokens), sampling=sampling,
+            trace=trace,
+        )
+        st.queued_at = st.submitted_at
+        with self._lock:
+            self._streams[sid] = st
+            self._pending.append(sid)
+            self.streams_total += 1
+        self._wake.set()
+        return sid
+
+    def poll(self, sid: str, cursor: int = 0) -> Optional[dict]:
+        """Tokens from ``cursor`` on, plus done/error; None = unknown sid."""
+        with self._lock:
+            st = self._streams.get(sid)
+            if st is None:
+                return None
+            cursor = max(0, int(cursor))
+            reply = {
+                "sid": sid,
+                "tokens": list(st.tokens[cursor:]),
+                "cursor": cursor + len(st.tokens[cursor:]),
+                "done": st.done,
+                "error": st.error,
+            }
+            if st.trace is not None:
+                reply["trace"] = st.trace
+            return reply
+
+    def trace_of(self, sid: str) -> Optional[str]:
+        """Serving-trace id for a live stream, or None.  Lock-free read
+        (GIL-atomic dict get on an immutable-per-stream field) so the
+        coalescer may call it from the decode thread mid-step."""
+        st = self._streams.get(sid)
+        return st.trace if st is not None else None
+
+    def cancel(self, sid: str) -> bool:
+        with self._lock:
+            st = self._streams.get(sid)
+            if st is None:
+                return False
+            already_done = st.done
+            st.cancelled = True
+        self._wake.set()
+        return not already_done
+
+    def pending_count(self) -> int:
+        with self._lock:
+            return len(self._pending)
+
+    def active_count(self) -> int:
+        """Streams holding a slot or waiting for one."""
+        with self._lock:
+            return sum(
+                1 for st in self._streams.values() if not st.done
+            )
+
+    def slots_in_use(self) -> int:
+        # reading the decoder's live/prefilling masks from another thread
+        # is a benign monitoring race (numpy bool reads tear at element
+        # granularity)
+        return int((self.decoder.live | self.decoder.prefilling).sum())
+
+    def free_page_headroom(self) -> Optional[int]:
+        """Free+reclaimable pages net of the active-slot reserve (None on
+        a dense decoder) — the admission controller's page-pressure
+        signal.  Plain-int reads of decode-thread-owned counters: benign
+        monitoring, no lock (CONCURRENCY.md invariant 12)."""
+        return self.decoder.free_page_headroom()
+
+    def estimate_retry_after_s(self) -> float:
+        """Best-effort hint for shed replies: how long until a slot is
+        plausibly free — queued work × observed per-step time over the
+        slot count, clamped to [0.1, 30]."""
+        step = self.step_time_ema or 0.05
+        with self._lock:
+            backlog = len(self._pending) + 1
+            budgets = [
+                max(1, st.max_new_tokens - len(st.tokens))
+                for st in self._streams.values()
+                if not st.done
+            ]
+        mean_budget = (sum(budgets) / len(budgets)) if budgets else 8.0
+        est = backlog * mean_budget * step / max(1, self.decoder.max_slots)
+        return float(min(30.0, max(0.1, est)))
+
+    def stats(self) -> dict:
+        with self._lock:
+            out = {
+                "streams_total": self.streams_total,
+                "streams_finished_total": self.streams_finished_total,
+                "streams_errored_total": self.streams_errored_total,
+                "streams_cancelled_total": self.streams_cancelled_total,
+                "tokens_total": self.tokens_total,
+                "streams_active": sum(
+                    1 for st in self._streams.values() if not st.done
+                ),
+                "pending": len(self._pending),
+                "slots": self.decoder.max_slots,
+                "slots_in_use": self.slots_in_use(),
+                "step_time_ema_s": self.step_time_ema,
+                "prefill_chunk_tokens": (
+                    self.prefill_chunk_tokens if self.chunked else 0
+                ),
+                "prefill_chunks_total": self.decoder.prefill_chunks_total,
+                "preemptions_total": self.preemptions_total,
+                "ttft_events_total": self.ttft_events_total,
+                "ttft_slow_total": self.ttft_slow_total,
+                "spec_k": self.spec_k if self.speculative else 0,
+                "spec_rounds_total": self.spec_rounds_total,
+                "spec_proposed_total": self.spec_proposed_total,
+                "spec_accepted_total": self.spec_accepted_total,
+                "spec_tokens_total": self.spec_tokens_total,
+                "spec_draft_seconds_total": round(
+                    self.spec_draft_seconds_total, 6
+                ),
+                "spec_verify_seconds_total": round(
+                    self.spec_verify_seconds_total, 6
+                ),
+                "spec_acceptance_rate": round(
+                    self.spec_accepted_total / self.spec_proposed_total, 4
+                ) if self.spec_proposed_total else 0.0,
+                "spec_effective_k": round(
+                    self.spec_tokens_total / self.spec_rounds_total, 4
+                ) if self.spec_rounds_total else 0.0,
+            }
+        out.update(self.decoder.kv_stats())
+        return out
+
+    # ---- the decode loop (lah-gw-decode thread ONLY below here) ----
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            try:
+                worked = self._iteration()
+            except Exception:
+                # the loop must survive anything a single pass throws —
+                # a dead decode thread strands every live stream
+                logger.exception("gateway decode iteration failed")
+                worked = False
+            if not worked:
+                # claimed-idle moment: nothing advanced this pass, so
+                # slot/page accounting must be back at baseline if the
+                # stream table is empty of open work (sanitizer-gated)
+                sanitizer.quiesce_point(self._quiesce_site)
+                self._wake.wait(timeout=self.idle_wait_s)
+                self._wake.clear()
+
+    def _iteration(self) -> bool:
+        now = _monotonic()
+        self._evict_cancelled(now)
+        self._admit_pending(now)
+        worked = self._prefill_chunks(now)
+        worked = self._decode_once(now) or worked
+        if now - self._last_gc > max(1.0, self.stream_ttl_s / 10):
+            self._gc_streams(now)
+            self._last_gc = now
+        return worked
+
+    def _finish(self, st: StreamState, now: float, *, error=None,
+                cancelled=False) -> None:
+        """Release st's slot (decoder side) and mark it done (table side).
+        Caller must NOT hold the lock.  Idempotent: a stream cancelled
+        while pending is finished by ``_evict_cancelled`` but its sid is
+        still in the pending deque, so ``_admit_pending`` reaches it a
+        second time — the counters must not double-count it."""
+        if st.slot is not None:
+            self.decoder.evict(st.slot)
+        with self._lock:
+            if st.done:
+                st.slot = None
+                return
+            st.slot = None
+            st.prefilling = False
+            st.done = True
+            st.finished_at = now
+            if error is not None:
+                st.error = error
+                self.streams_errored_total += 1
+            elif cancelled:
+                self.streams_cancelled_total += 1
+            else:
+                self.streams_finished_total += 1
+        # reached once per stream (the idempotency return above guards
+        # re-entry): the umbrella span every other lifecycle span nests
+        # under by time containment, plus an outcome marker
+        if timeline.enabled:
+            timeline.record(
+                "gateway.stream", st.submitted_at,
+                max(0.0, now - st.submitted_at), trace=st.trace,
+            )
+            if cancelled:
+                timeline.record(
+                    "gateway.stream.cancel", now, 0.0, trace=st.trace
+                )
+            elif error is not None:
+                timeline.record(
+                    "gateway.stream.error", now, 0.0, trace=st.trace
+                )
+
+    def _evict_cancelled(self, now: float) -> None:
+        with self._lock:
+            doomed = [
+                st for st in self._streams.values()
+                if st.cancelled and not st.done
+            ]
+        for st in doomed:
+            self._finish(st, now, cancelled=True)
+
+    def _effective_prompt(self, st: StreamState) -> list:
+        """What prefill must run for st: the submitted prompt plus every
+        token already delivered (non-empty after a preemption — the
+        counter-based (seed, position) RNG makes the recomputed
+        continuation identical for greedy and sampled streams alike, so
+        the requeue is invisible to the client beyond latency)."""
+        with self._lock:
+            return list(st.prompt) + [int(t) for t in st.tokens]
+
+    def _prompt_can_ever_fit(self, n_tokens: int) -> bool:
+        """False when a prompt needs more pages than the WHOLE pool —
+        requeueing it would livelock admission forever (+1: the stream
+        must be able to decode at least one token past the prompt)."""
+        kv = getattr(self.decoder, "kv", None)
+        if kv is None:
+            return True
+        need = self.decoder.pages_needed(
+            min(n_tokens + 1, self.decoder.seq_len)
+        )
+        return need <= kv.pages_total()
+
+    def _admit_pending(self, now: float) -> None:
+        while True:
+            free = self.decoder.free_slots()
+            if not free:
+                return
+            with self._lock:
+                sid = self._pending.popleft() if self._pending else None
+                st = self._streams.get(sid) if sid else None
+            if st is None:
+                return
+            if st.cancelled:
+                self._finish(st, now, cancelled=True)
+                continue
+            prompt = self._effective_prompt(st)
+            if (
+                len(prompt) >= self.decoder.seq_len
+                and len(prompt) > len(st.prompt)
+            ):
+                # a preempted victim whose recompute prompt reached the
+                # cache edge: no row is left to prefill its next logits,
+                # but it did not fail — it hit capacity, exactly as if it
+                # had decoded to seq_len in place (found by lah-verify:
+                # erroring it here leaked a spurious client-visible
+                # failure under prefix-cache page pressure)
+                self._finish(st, now)
+                continue
+            if not self._prompt_can_ever_fit(len(prompt)):
+                self._finish(
+                    st, now,
+                    error=(
+                        f"prompt needs {self.decoder.pages_needed(len(prompt))}"
+                        f" KV pages but the pool holds "
+                        f"{self.decoder.kv.pages_total()}"
+                    ),
+                )
+                continue
+            if self.chunked:
+                try:
+                    self.decoder.begin_prefill(
+                        free[0], prompt, stream_id=st.sid,
+                        sampling=st.sampling,
+                    )
+                except PagePressure:
+                    # not even the prefix-cache boundary copy fits right
+                    # now — requeue at the front and let decode/prefill
+                    # progress free pages
+                    with self._lock:
+                        self._pending.appendleft(st.sid)
+                    return
+                except Exception as e:
+                    logger.exception("begin_prefill failed for stream %s",
+                                     st.sid)
+                    self._finish(st, now, error=f"{type(e).__name__}: {e}")
+                    continue
+                self._record_admit_spans(st, _monotonic())
+                with self._lock:
+                    st.slot = free[0]
+                    st.prefilling = True
+                continue
+            # serial prefill (dense decoder, or chunking disabled for the
+            # legacy bench arm)
+            t_assign = _monotonic()
+            try:
+                with timeline.span("gateway.prefill", trace=st.trace):
+                    tok = self.decoder.prefill_into_slot(
+                        free[0], prompt, stream_id=st.sid,
+                        sampling=st.sampling,
+                    )
+            except PagePressure:
+                self.decoder.evict(free[0])
+                with self._lock:
+                    self._pending.appendleft(st.sid)
+                return
+            except Exception as e:
+                logger.exception("prefill failed for stream %s", st.sid)
+                self._finish(st, now, error=f"{type(e).__name__}: {e}")
+                continue
+            self._record_admit_spans(st, t_assign)
+            self._stream_got_token(st, free[0], tok, now)
+
+    def _record_admit_spans(self, st: StreamState, t_assign: float) -> None:
+        """Slot-assign spans: the pending wait this stream just completed
+        plus an instant admit marker — named ``gateway.recompute.admit``
+        when the admit re-runs a preempted stream's token-identical
+        prefill (ISSUE 19 trace continuity through preemption)."""
+        if not timeline.enabled:
+            return
+        timeline.record(
+            "gateway.pending.wait", st.queued_at,
+            max(0.0, t_assign - st.queued_at), trace=st.trace,
+        )
+        name = (
+            "gateway.recompute.admit" if st.preemptions
+            else "gateway.slot.assign"
+        )
+        timeline.record(name, t_assign, 0.0, trace=st.trace)
+
+    def _stream_got_token(self, st: StreamState, slot: int, tok: int,
+                          now: float) -> None:
+        """A prefill produced st's next token: record it, turn the slot
+        live on the table side, finish if the budget is already met."""
+        ttft = None
+        with self._lock:
+            st.slot = slot
+            st.prefilling = False
+            if st.first_token_at is None:
+                st.first_token_at = _monotonic()
+                ttft = st.first_token_at - st.submitted_at
+                self.ttft_events_total += 1
+                if (
+                    self.ttft_target_s is not None
+                    and ttft > self.ttft_target_s
+                ):
+                    self.ttft_slow_total += 1
+            st.tokens.append(tok)
+            self.tokens_total += 1
+            full = (
+                len(st.tokens) >= st.max_new_tokens
+                or self.decoder.at_capacity(slot)
+            )
+        if ttft is not None:
+            registry.histogram(
+                "lah_gateway_ttft_seconds",
+                "time to first token per stream (submit → first token)",
+            ).observe(ttft)
+            if timeline.enabled:
+                timeline.record(
+                    "gateway.token.first", st.first_token_at, 0.0,
+                    trace=st.trace,
+                )
+        elif timeline.enabled:
+            timeline.record("gateway.token", now, 0.0, trace=st.trace)
+        if full:
+            self._finish(st, now)
+
+    def _prefill_chunks(self, now: float) -> bool:
+        """Spend one pass's prefill token budget round-robin across
+        mid-prefill slots — the interleave that keeps running-stream ITL
+        flat while long prompts prefill."""
+        if not self.chunked:
+            return False
+        budget = self.prefill_chunk_tokens
+        slots = self.decoder.prefilling_slots()
+        if not slots:
+            return False
+        rot = self._prefill_rr % len(slots)
+        slots = slots[rot:] + slots[:rot]
+        self._prefill_rr += 1
+        worked = False
+        for slot, sid in slots:
+            if budget <= 0:
+                break
+            with self._lock:
+                st = self._streams.get(sid)
+                # a PagePressure earlier in THIS pass may have preempted
+                # this very stream — its snapshot entry is stale and its
+                # slot already evicted
+                stale = st is not None and (
+                    not st.prefilling or st.slot != slot
+                )
+            if st is None:  # GC'd mid-prefill: free the slot
+                self.decoder.evict(slot)
+                continue
+            if stale:
+                continue
+            if st.cancelled:  # next _evict_cancelled pass finishes it
+                continue
+            try:
+                with timeline.span("gateway.prefill.chunk", trace=st.trace):
+                    consumed, tok = self.decoder.prefill_step(slot, budget)
+            except PagePressure:
+                # the raiser is NOT excluded from the victim pool: if it
+                # is itself the youngest slotted stream it gets requeued,
+                # so the oldest stream's progress is monotone and two
+                # mid-prefill streams can never preempt each other
+                # forever (the livelock an exclude-self rule creates)
+                if not self._preempt_one(now):
+                    break  # nothing preemptable; decode will free pages
+                continue  # st retries next pass against the freed pages
+            except Exception as e:
+                logger.exception("prefill chunk failed for stream %s", sid)
+                self._finish(st, now, error=f"{type(e).__name__}: {e}")
+                continue
+            budget -= consumed
+            worked = True
+            if tok is not None:
+                self._stream_got_token(st, slot, tok, now)
+        return worked
+
+    def _preempt_one(self, now: float,
+                     among: Optional[list] = None) -> bool:
+        """Preempt-and-recompute the YOUNGEST victim stream: evict its
+        slot (pages return to the pool) and requeue it at the front with
+        its tokens folded into the prompt.  Decoding victims are
+        preferred over mid-prefill ones (less work to redo per page
+        freed).  A pressure-raising stream may pick ITSELF (it is the
+        youngest): self-preemption is what makes the contention order
+        total — the oldest stream always keeps its pages.  Returns False
+        when there is nothing to preempt."""
+        with self._lock:
+            if among is not None:
+                pool = [st for st in among if not st.done]
+            else:
+                pool = [
+                    st for st in self._streams.values()
+                    if st.slot is not None and not st.done
+                ]
+            decoding = [st for st in pool if not st.prefilling]
+            candidates = decoding or pool
+            if not candidates:
+                return False
+            victim = max(
+                candidates,
+                key=lambda st: st.first_token_at or st.submitted_at,
+            )
+        self.decoder.evict(victim.slot)
+        t_evict = _monotonic()
+        with self._lock:
+            victim.slot = None
+            victim.prefilling = False
+            victim.preemptions += 1
+            victim.queued_at = t_evict
+            tokens_redone = len(victim.tokens)
+            self._pending.appendleft(victim.sid)
+        self.preemptions_total += 1
+        flight.record(
+            "gateway", "preempt", sid=victim.sid,
+            tokens_redone=tokens_redone, preemptions=victim.preemptions,
+        )
+        if timeline.enabled:
+            timeline.record(
+                "gateway.preempt", t_evict, 0.0, trace=victim.trace
+            )
+        logger.info("gateway preempted stream %s under page pressure",
+                    victim.sid)
+        return True
+
+    def _decode_once(self, now: float) -> bool:
+        # page pressure first: every live slot must hold a page for its
+        # next position before the batched step
+        while True:
+            lacking = self.decoder.ensure_decode_pages()
+            if not lacking:
+                break
+            with self._lock:
+                lacking_sts = [
+                    st for st in self._streams.values()
+                    if st.slot in lacking and not st.done
+                ]
+            if not lacking_sts or not self._preempt_one(
+                now, among=lacking_sts
+            ):
+                break  # defensive: nothing matched the lacking slots
+        live = self.decoder.live_slots()
+        if not live:
+            return False
+        if self.speculative:
+            return self._verify_once(now, live)
+        t0 = _monotonic()
+        try:
+            nxt = self.decoder.decode_step()
+        except Exception as e:
+            # a failed step (e.g. total dispatch failure with every
+            # expert down) poisons every stream in the batch: error them
+            # all out rather than spin on the same failure
+            logger.exception("decode step failed — erroring %d streams",
+                             len(live))
+            for _slot, sid in live:
+                with self._lock:
+                    st = self._streams.get(sid)
+                if st is not None:
+                    self._finish(st, now, error=f"{type(e).__name__}: {e}")
+            return True
+        dt = _monotonic() - t0
+        self.step_time_ema = (
+            dt if self.step_time_ema is None
+            else 0.8 * self.step_time_ema + 0.2 * dt
+        )
+        profiled = timeline.enabled
+        if profiled:
+            timeline.record("gateway.decode.step", t0, dt)
+        finished = []
+        with self._lock:
+            for slot, sid in live:
+                st = self._streams.get(sid)
+                if st is None:  # GC'd mid-flight: free the slot below
+                    finished.append((slot, None))
+                    continue
+                if st.slot != slot:  # preempted within this pass
+                    continue
+                st.tokens.append(int(nxt[slot]))
+                self.tokens_total += 1
+                if profiled:
+                    timeline.record(
+                        "gateway.token", now, 0.0, trace=st.trace
+                    )
+                if (
+                    len(st.tokens) >= st.max_new_tokens
+                    or self.decoder.at_capacity(slot)
+                    or st.cancelled
+                ):
+                    finished.append((slot, st))
+        for slot, st in finished:
+            if st is None:
+                self.decoder.evict(slot)
+            else:
+                self._finish(st, now, cancelled=st.cancelled)
+        return True
+
+    def _verify_once(self, now: float, live: list) -> bool:
+        """One speculative round: draft up to ``spec_k`` tokens per live
+        stream, verify every drafted position for every stream in ONE
+        batched trunk pass, commit the accepted prefixes.  Replaces the
+        single :meth:`decode_step` of the non-speculative loop — an
+        empty proposal (drafter found nothing, or no budget/capacity
+        headroom) degrades that stream to a plain decode row, so the
+        round always advances every stream by at least one token."""
+        proposals: dict[int, list] = {}
+        t_draft = _monotonic()
+        for slot, sid in live:
+            with self._lock:
+                st = self._streams.get(sid)
+                if st is None or st.slot != slot:
+                    remaining = 1  # advance the orphan row; cleaned below
+                    sampling = None
+                    ctx = None
+                else:
+                    remaining = st.max_new_tokens - len(st.tokens)
+                    sampling = st.sampling
+                    ctx = list(st.prompt) + [int(t) for t in st.tokens]
+            # a round delivers 1..k+1 tokens: cap k so the budget and
+            # the cache row at the last drafted position both exist
+            k = min(
+                self.spec_k,
+                max(0, remaining - 1),
+                self.decoder.seq_len - 1 - int(self.decoder.pos[slot]),
+            )
+            drafts: list = []
+            if k > 0 and ctx is not None:
+                try:
+                    drafts = [
+                        int(t)
+                        for t in self.drafter.propose(ctx, k, sampling)
+                    ][:k]
+                except Exception:
+                    logger.exception(
+                        "drafter failed for stream %s — plain decode", sid
+                    )
+                    drafts = []
+            if drafts:
+                covered = self.decoder.ensure_lookahead_pages(
+                    slot, len(drafts)
+                )
+                drafts = drafts[:covered]
+            proposals[slot] = drafts
+        draft_dt = _monotonic() - t_draft
+        self.spec_draft_seconds_total += draft_dt
+        if timeline.enabled:
+            timeline.record("gateway.spec.draft", t_draft, draft_dt)
+        t0 = _monotonic()
+        try:
+            results = self.decoder.verify_step(proposals)
+        except Exception as e:
+            logger.exception("verify step failed — erroring %d streams",
+                             len(live))
+            for _slot, sid in live:
+                with self._lock:
+                    st = self._streams.get(sid)
+                if st is not None:
+                    self._finish(st, now, error=f"{type(e).__name__}: {e}")
+            return True
+        dt = _monotonic() - t0
+        self.spec_verify_seconds_total += dt
+        self.step_time_ema = (
+            dt if self.step_time_ema is None
+            else 0.8 * self.step_time_ema + 0.2 * dt
+        )
+        profiled = timeline.enabled
+        if profiled:
+            timeline.record("gateway.spec.verify", t0, dt)
+        finished = []
+        with self._lock:
+            for slot, sid in live:
+                st = self._streams.get(sid)
+                if st is None:  # GC'd mid-flight: free the slot below
+                    finished.append((slot, None))
+                    continue
+                if st.slot != slot:  # preempted within this pass
+                    continue
+                res = results.get(slot)
+                if res is None:
+                    continue
+                self.spec_rounds_total += 1
+                self.spec_proposed_total += res["proposed"]
+                self.spec_accepted_total += res["accepted"]
+                self.spec_tokens_total += len(res["tokens"])
+                if profiled:
+                    # accepted-k rides the span name: one instant marker
+                    # per stream per verify round (k is bounded by spec_k
+                    # so the name set stays small)
+                    timeline.record(
+                        f"gateway.spec.accept.k{res['accepted']}",
+                        now, 0.0, trace=st.trace,
+                    )
+                for tok in res["tokens"]:
+                    st.tokens.append(int(tok))
+                    self.tokens_total += 1
+                if (
+                    len(st.tokens) >= st.max_new_tokens
+                    or self.decoder.at_capacity(slot)
+                    or st.cancelled
+                ):
+                    finished.append((slot, st))
+        for slot, st in finished:
+            if st is None:
+                self.decoder.evict(slot)
+            else:
+                self._finish(st, now, cancelled=st.cancelled)
+        return True
+
+    def _gc_streams(self, now: float) -> None:
+        """Drop finished streams nobody polled away after the TTL —
+        bounded memory under fire-and-forget clients."""
+        with self._lock:
+            stale = [
+                sid for sid, st in self._streams.items()
+                if st.done and st.finished_at is not None
+                and now - st.finished_at > self.stream_ttl_s
+            ]
+            traces = [self._streams[sid].trace for sid in stale]
+            for sid in stale:
+                del self._streams[sid]
+        if timeline.enabled:
+            for tr in traces:
+                timeline.record("gateway.stream.gc", now, 0.0, trace=tr)
+        if stale:
+            logger.info("gateway stream GC dropped %d stale results",
+                        len(stale))
+
+    # ---- machine-checked invariants (lah-verify / sanitizer) ----
+
+    def audit(self) -> list[str]:
+        """Check every ``scheduler.*`` row of :data:`VERIFIED_INVARIANTS`
+        against the live state; returns violation strings (empty = clean).
+        Called by the lah-verify explorer after every step of every
+        explored interleaving, and by the quiesce audit at idle.  Must be
+        callable from the decode thread (reads decoder masks directly)."""
+        leaks: list[str] = []
+        with self._lock:
+            open_streams = [
+                st for st in self._streams.values() if not st.done
+            ]
+            slots: dict[int, str] = {}
+            for st in open_streams:
+                if st.slot is None:
+                    continue
+                if st.slot in slots:
+                    leaks.append(
+                        f"slot_unique: slot {st.slot} owned by both "
+                        f"{slots[st.slot]} and {st.sid}"
+                    )
+                slots[st.slot] = st.sid
+            for st in self._streams.values():
+                if st.done and st.slot is not None:
+                    leaks.append(
+                        f"done_slotless: done stream {st.sid} still "
+                        f"holds slot {st.slot}"
+                    )
+            closed = (
+                self.streams_finished_total + self.streams_errored_total
+                + self.streams_cancelled_total
+            )
+            if self.streams_total != closed + len(open_streams):
+                leaks.append(
+                    "counter_conservation: total "
+                    f"{self.streams_total} != closed {closed} + open "
+                    f"{len(open_streams)} (a _finish double-count or a "
+                    "lost stream)"
+                )
+        busy = getattr(self.decoder, "busy_slots", None)
+        if callable(busy):
+            decoder_side = set(busy())
+            table_side = set(slots)
+            for slot in decoder_side - table_side:
+                leaks.append(
+                    f"slot_table_consistent: decoder slot {slot} is "
+                    "live/prefilling but no open stream owns it (leak)"
+                )
+            for slot in table_side - decoder_side:
+                leaks.append(
+                    f"slot_table_consistent: stream {slots[slot]} claims "
+                    f"slot {slot} the decoder thinks is free"
+                )
+        for rec in getattr(self.decoder, "last_verify", None) or []:
+            drafts = rec.get("drafts", [])
+            samples = rec.get("samples", [])
+            a = 0
+            while a < len(drafts) and drafts[a] == samples[a]:
+                a += 1
+            if rec.get("accepted") != a or (
+                rec.get("tokens") != samples[:a + 1]
+            ):
+                leaks.append(
+                    "spec_prefix_accept: slot "
+                    f"{rec.get('slot')} committed {rec.get('tokens')} "
+                    f"(claimed accepted={rec.get('accepted')}) but the "
+                    f"longest matched prefix of drafts {drafts} vs "
+                    f"samples {samples} is {a}"
+                )
+        kv_audit = getattr(
+            getattr(self.decoder, "kv", None), "audit", None
+        )
+        if callable(kv_audit):
+            leaks.extend(f"kv: {x}" for x in kv_audit())
+        return leaks
+
+    def _quiesce_audit(self) -> list[str]:
+        """Leak check at a claimed-idle moment.  Only bites when the
+        stream table holds no open work — mid-work calls return clean
+        rather than second-guess a busy scheduler."""
+        with self._lock:
+            busy = self._pending or any(
+                not st.done for st in self._streams.values()
+            )
+        if busy:
+            return []
+        leaks = self.audit()
+        in_use = self.slots_in_use()
+        if in_use:
+            leaks.append(
+                f"quiesce_baseline: {in_use} decoder slot(s) in use "
+                "with no open streams"
+            )
+        return leaks

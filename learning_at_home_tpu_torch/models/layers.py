@@ -131,6 +131,10 @@ class MultiHeadDotProductAttention(nn.Module):
 class FeedforwardBlock(nn.Module):
     """Residual pre-LN MLP expert: LN → Dense(4h) → GELU → Dense(h) + x."""
 
+    # inputs of at least this rank are mapped row by row (dim 0) with no
+    # row reading another (ExpertBackend.forward evaluates them in tiles)
+    rows_independent_ndim = 1
+
     def __init__(self, hidden_dim: int, dtype=torch.float32):
         super().__init__()
         self.LayerNorm_0 = LayerNorm(hidden_dim, dtype)
@@ -144,6 +148,10 @@ class FeedforwardBlock(nn.Module):
 
 class TransformerEncoderBlock(nn.Module):
     """Pre-LN transformer encoder layer expert over [..., seq, hidden]."""
+
+    # a [rows, hidden] input attends across its rows (as flax's block
+    # does); from [rows, seq, hidden] on, each row attends within itself
+    rows_independent_ndim = 3
 
     def __init__(self, hidden_dim: int, num_heads: int = 8,
                  dtype=torch.float32):
@@ -164,6 +172,8 @@ class TransformerEncoderBlock(nn.Module):
 class SwiGLUBlock(nn.Module):
     """Residual pre-LN SwiGLU expert: LN → (W1·x) ⊙ silu(Wg·x) → W2 + x,
     branch width ``8*h//3``, no biases."""
+
+    rows_independent_ndim = 1
 
     def __init__(self, hidden_dim: int, dtype=torch.float32):
         super().__init__()
@@ -186,6 +196,8 @@ class DeterministicDropoutBlock(nn.Module):
     the mask derives only from the wire inputs: row ``i`` keeps feature
     ``j`` where ``jax.random.bernoulli(PRNGKey(seed[i]), 1 - rate,
     (4h,))[j]``, the JAX block's mask bit for bit."""
+
+    rows_independent_ndim = 1
 
     def __init__(self, hidden_dim: int, rate: float = 0.1,
                  dtype=torch.float32):
@@ -219,6 +231,8 @@ class DeterministicDropoutBlock(nn.Module):
 class NopBlock(nn.Module):
     """Identity expert with one trainable scalar ``scale`` — isolates the
     batching/transport overhead from compute in benchmarks."""
+
+    rows_independent_ndim = 1
 
     def __init__(self, hidden_dim: int = 0, dtype=torch.float32):
         super().__init__()
@@ -343,7 +357,8 @@ def make_expert(expert_cls: str, hidden_dim: int, key: torch.Tensor,
     the params the JAX package's ``make_expert(expert_cls, hidden_dim,
     key)`` draws (``key``: a ``random.PRNGKey``), on ``device`` (None: the
     CUDA card), ``apply_fn(params, *inputs)`` the block applied with
-    them."""
+    them.  ``apply_fn.rows_independent_ndim`` is the block's: inputs of
+    that rank or more may be evaluated in row tiles."""
     dev = resolve_device(device)
     with torch.device("meta"):
         module = name_to_block[expert_cls](hidden_dim=hidden_dim, dtype=dtype)
@@ -352,4 +367,5 @@ def make_expert(expert_cls: str, hidden_dim: int, key: torch.Tensor,
     def apply_fn(params, *inputs):
         return torch.func.functional_call(module, flat_params(params), inputs)
 
+    apply_fn.rows_independent_ndim = module.rows_independent_ndim
     return apply_fn, params

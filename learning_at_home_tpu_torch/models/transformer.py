@@ -164,46 +164,47 @@ class DMoETransformerLM:
 
     # ---- parameters ----
 
-    def init_params(self, generator: torch.Generator) -> Params:
-        """Random parameters from ``generator``, which must live on the
-        model's device.  The JAX init's distributions (lecun-normal dense
-        weights, N(0, 1/d) embeddings), not its bits."""
-        if generator.device.type != self.device.type:
-            raise ValueError(
-                f"generator is on {generator.device}, the model on "
-                f"{self.device}"
-            )
+    def init_params(self, rng: torch.Tensor) -> Params:
+        """Random parameters from the key ``rng`` (``random.PRNGKey``),
+        drawn on the model's device: the JAX package's values for the same
+        key (lecun-normal dense weights, N(0, 1/d) embeddings; the keys
+        split in its order, five a layer).  The stacked layout draws each
+        layer from its key and stacks, as ``jax.vmap`` over the layer keys
+        does."""
         cfg = self.cfg
         d, v, s, n_layers = cfg.d_model, cfg.vocab_size, cfg.seq_len, cfg.n_layers
         pdt, dev = cfg.param_dtype, self.device
+        rng = rng.to(dev)
+        k_embed, k_pos, k_head, k_layers = prng.split(rng, 4)
 
-        def ln(lead):
-            return {"scale": torch.ones((*lead, d), dtype=pdt, device=dev),
-                    "bias": torch.zeros((*lead, d), dtype=pdt, device=dev)}
+        def ln():
+            return {"scale": torch.ones(d, dtype=pdt, device=dev),
+                    "bias": torch.zeros(d, dtype=pdt, device=dev)}
 
-        def init_layer(lead):
+        def init_layer(key):
+            ks = prng.split(key, 5)
             return {
-                "ln1": ln(lead),
-                "wq": lecun_normal((d, d), generator, pdt, lead),
-                "wk": lecun_normal((d, d), generator, pdt, lead),
-                "wv": lecun_normal((d, d), generator, pdt, lead),
-                "wo": lecun_normal((d, d), generator, pdt, lead),
-                "ln2": ln(lead),
-                "moe": self.moe.init_params(generator, lead),
+                "ln1": ln(),
+                "wq": lecun_normal(ks[0], (d, d), pdt),
+                "wk": lecun_normal(ks[1], (d, d), pdt),
+                "wv": lecun_normal(ks[2], (d, d), pdt),
+                "wo": lecun_normal(ks[3], (d, d), pdt),
+                "ln2": ln(),
+                "moe": self.moe.init_params(ks[4]),
             }
 
+        layers = tuple(init_layer(k) for k in prng.split(k_layers, n_layers))
         params: dict = {
-            "embed": normal((v, d), d ** -0.5, generator, pdt),
-            "pos": normal((s, d), d ** -0.5, generator, pdt),
-            "ln_f": ln(()),
+            "embed": normal(k_embed, (v, d), d ** -0.5, pdt),
+            "pos": normal(k_pos, (s, d), d ** -0.5, pdt),
+            "ln_f": ln(),
             "layers": (
-                init_layer((n_layers,))
-                if cfg.stack_layers
-                else tuple(init_layer(()) for _ in range(n_layers))
+                tree_map(lambda *leaves: torch.stack(leaves), *layers)
+                if cfg.stack_layers else layers
             ),
         }
         if not cfg.tie_embeddings:
-            params["lm_head"] = lecun_normal((d, v), generator, pdt)
+            params["lm_head"] = lecun_normal(k_head, (d, v), pdt)
         return params
 
     # ---- forward ----

@@ -29,12 +29,12 @@ import torch
 import torch.nn.functional as F
 
 from learning_at_home_tpu_torch import optim
+from learning_at_home_tpu_torch import random as jrandom
 from learning_at_home_tpu_torch.client.moe import RemoteMixtureOfExperts
 from learning_at_home_tpu_torch.client.routing import ExpertSource
 from learning_at_home_tpu_torch.device import resolve_device
 from learning_at_home_tpu_torch.initializers import lecun_normal, normal
 from learning_at_home_tpu_torch.models.trunk import causal_attention, layer_norm
-from learning_at_home_tpu_torch.tree import tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,41 +108,39 @@ class SwarmDMoETransformerLM:
             for i in range(config.n_layers)
         ]
 
-    def init_params(self, generator: torch.Generator, device=None) -> dict:
-        """The JAX package's tree: ``embed`` [V, d] and ``pos`` [S, d]
+    def init_params(self, rng: torch.Tensor, device=None) -> dict:
+        """The JAX package's tree and values for the key ``rng``
+        (``random.PRNGKey``): ``embed`` [V, d] and ``pos`` [S, d]
         normal(1/sqrt(d)), ``ln_f``, and per layer ``ln1``, ``wq``, ``wk``,
         ``wv``, ``wo`` (lecun_normal [d, d]), ``ln2`` and the gate's
-        ``w0..`` (``init_gate_params``).  Drawn in JAX's order from
-        ``generator`` on its own device (the values are torch's draws, the
-        distributions JAX's), then placed on ``device`` (None: the CUDA
+        ``w0..`` (``init_gate_params``), from ``split(rng, 3 + 6 *
+        n_layers)`` consumed in order; drawn on ``device`` (None: the CUDA
         card)."""
         dev = resolve_device(device)
         cfg = self.cfg
         d, v, s = cfg.d_model, cfg.vocab_size, cfg.seq_len
         dt = cfg.dtype
+        keys = iter(jrandom.split(rng.to(dev), 3 + 6 * cfg.n_layers))
 
         def ln():
             return {"scale": torch.ones(d, dtype=dt, device=dev),
                     "bias": torch.zeros(d, dtype=dt, device=dev)}
 
-        def put(t):
-            return t.to(device=dev, dtype=dt)
-
         params = {
-            "embed": put(normal((v, d), 1.0 / math.sqrt(d), generator, dt)),
-            "pos": put(normal((s, d), 1.0 / math.sqrt(d), generator, dt)),
+            "embed": normal(next(keys), (v, d), 1.0 / math.sqrt(d), dt),
+            "pos": normal(next(keys), (s, d), 1.0 / math.sqrt(d), dt),
             "ln_f": ln(),
             "layers": [],
         }
         for i in range(cfg.n_layers):
             params["layers"].append({
                 "ln1": ln(),
-                "wq": put(lecun_normal((d, d), generator, dt)),
-                "wk": put(lecun_normal((d, d), generator, dt)),
-                "wv": put(lecun_normal((d, d), generator, dt)),
-                "wo": put(lecun_normal((d, d), generator, dt)),
+                "wq": lecun_normal(next(keys), (d, d), dt),
+                "wk": lecun_normal(next(keys), (d, d), dt),
+                "wv": lecun_normal(next(keys), (d, d), dt),
+                "wo": lecun_normal(next(keys), (d, d), dt),
                 "ln2": ln(),
-                "gate": tree_map(put, self.moes[i].init_gate_params(generator)),
+                "gate": self.moes[i].init_gate_params(next(keys)),
             })
         return params
 

@@ -87,3 +87,28 @@ def one_query_attention(
     w = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bhqs,bshd->bqhd", w, v_cache)
     return output_projection(lp, out)
+
+
+def gather_kv_pages(pool: torch.Tensor,
+                    page_tables: torch.Tensor) -> torch.Tensor:
+    """[num_pages,P,H,hd] pool + [B,n] integer page tables → a
+    [B,n*P,H,hd] contiguous per-row KV view.  Unmapped table entries point
+    at scratch page 0; its (finite: the pools start zeroed) contents sit at
+    positions the caller's ``t`` mask excludes, so the softmax gives them
+    weight exactly 0 and the output is bitwise what a dense cache gives."""
+    b, n = page_tables.shape
+    _, page_len, h, hd = pool.shape
+    return pool[page_tables.long()].reshape(b, n * page_len, h, hd)
+
+
+def paged_one_query_attention(
+    lp: dict, q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+    page_tables: torch.Tensor, t,
+) -> torch.Tensor:
+    """:func:`one_query_attention` over a paged KV cache: each row's cache
+    is gathered from the shared page pool through its page table, then the
+    same masked-softmax core runs on the view, so paged decoding equals
+    dense decoding bit for bit by construction."""
+    k = gather_kv_pages(k_pool, page_tables)
+    v = gather_kv_pages(v_pool, page_tables)
+    return one_query_attention(lp, q, k, v, t)

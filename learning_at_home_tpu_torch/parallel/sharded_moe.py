@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from learning_at_home_tpu_torch import random as jrandom
 from learning_at_home_tpu_torch.initializers import lecun_normal, normal
 from learning_at_home_tpu_torch.ops.moe_dispatch import (
     choose_dispatch_impl,
@@ -79,19 +80,20 @@ class ShardedMixtureOfExperts:
         self.router_jitter = router_jitter
         self.gating = gating
 
-    def init_params(self, generator: torch.Generator,
-                    lead: tuple[int, ...] = ()) -> Params:
-        """Random parameters on ``generator``'s device; ``lead`` prepends
-        dims (the stacked layer dim).  The distributions of the JAX init:
-        gate N(0, 1e-2²), lecun-normal experts, zero biases."""
+    def init_params(self, rng: torch.Tensor) -> Params:
+        """Random parameters from the key ``rng`` on its device: the JAX
+        package's values for the same key (``split(rng, 3)``: gate
+        N(0, 1e-2²), lecun-normal experts over ``(e, d, f)``, zero
+        biases)."""
         d, e, f = self.hidden_dim, self.num_experts, self.ffn_dim
-        pdt, dev = self.param_dtype, generator.device
+        pdt, dev = self.param_dtype, rng.device
+        kg, k1, k2 = jrandom.split(rng, 3)
         return {
-            "gate": normal((*lead, d, e), 1e-2, generator, pdt),
-            "w1": lecun_normal((e, d, f), generator, pdt, lead),
-            "b1": torch.zeros((*lead, e, f), dtype=pdt, device=dev),
-            "w2": lecun_normal((e, f, d), generator, pdt, lead),
-            "b2": torch.zeros((*lead, e, d), dtype=pdt, device=dev),
+            "gate": normal(kg, (d, e), 1e-2, pdt),
+            "w1": lecun_normal(k1, (e, d, f), pdt),
+            "b1": torch.zeros((e, f), dtype=pdt, device=dev),
+            "w2": lecun_normal(k2, (e, f, d), pdt),
+            "b2": torch.zeros((e, d), dtype=pdt, device=dev),
         }
 
     def __call__(

@@ -5,8 +5,9 @@ The port's counterpart of the parts of ``jax.random`` that router jitter
 ``generate``) and the deterministic-dropout expert (``models/layers.py``)
 use: :func:`PRNGKey`, :func:`fold_in`, :func:`split`,
 :func:`random_bits`, :func:`uniform`, :func:`bernoulli`, :func:`gumbel`
-and :func:`categorical`, and the experts' initialiser (flax's
-``lecun_normal`` in ``models/layers.py``) :func:`truncated_normal`, for
+and :func:`categorical`, and the initialisers of the experts and the model trunks
+(``lecun_normal`` and ``normal``, ``initializers.py``)
+:func:`truncated_normal` and :func:`normal`, for
 JAX's default generator
 (``jax_default_prng_impl = "threefry2x32"``) with
 ``jax_threefry_partitionable = True``, the default of JAX 0.9.  With that
@@ -113,14 +114,22 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     return torch.cat([y0, y1])
 
 
-def _counters(key: torch.Tensor, shape: tuple[int, ...]):
+# a draw of one key hashes at most this many counters at once: the hash
+# holds a few int64 tensors of the chunk's size (a [256, 512, 2048] leaf
+# whole would hold ~10 GB of them)
+_CHUNK = 1 << 25
+
+
+def _counters(key: torch.Tensor, shape: tuple[int, ...], start: int = 0,
+              stop: int | None = None):
     """The Threefry-2x32 hash of the 64-bit row-major counters of an array
-    of ``shape``, split into (high, low) words, as JAX's partitionable
-    draws count."""
+    of ``shape`` (those in ``[start, stop)``, flat), split into (high,
+    low) words, as JAX's partitionable draws count."""
     size = 1
     for s in shape:
         size *= s
-    i = torch.arange(size, dtype=torch.int64, device=key.device)
+    i = torch.arange(start, size if stop is None else stop,
+                     dtype=torch.int64, device=key.device)
     return threefry2x32(key, i >> 32, i & _MASK)
 
 
@@ -140,6 +149,16 @@ def random_bits(key: torch.Tensor, bit_width: int,
     if bit_width not in _BITS_TYPE:
         raise ValueError(f"bit_width must be 8, 16 or 32, got {bit_width}")
     shape = tuple(int(s) for s in shape)
+    size = math.prod(shape)
+    if key.dim() == 1 and size > _CHUNK:
+        out = torch.empty(size, dtype=_BITS_TYPE[bit_width],
+                          device=key.device)
+        for start in range(0, size, _CHUNK):
+            stop = min(start + _CHUNK, size)
+            y0, y1 = _counters(key, shape, start, stop)
+            out[start:stop] = _as_signed(
+                (y0 ^ y1) & ((1 << bit_width) - 1), bit_width)
+        return out.reshape(shape)
     y0, y1 = _counters(key, shape)
     bits = (y0 ^ y1) & ((1 << bit_width) - 1)
     return _as_signed(bits, bit_width).reshape(*key.shape[:-1], *shape)
@@ -160,9 +179,7 @@ def uniform(key: torch.Tensor, shape: tuple[int, ...],
     the exponent of 1.0 give a float in [1, 2); minus 1, scaled to
     ``maxval - minval``, plus ``minval``, clamped below at ``minval``,
     each step rounded as XLA on the CPU rounds it."""
-    if dtype not in _FLOAT_LAYOUT:
-        raise TypeError(f"uniform takes {sorted(map(str, _FLOAT_LAYOUT))}, "
-                        f"got {dtype}")
+    _check_float("uniform", dtype)
     nbits, nmant, one = _FLOAT_LAYOUT[dtype]
     rng_bits = nbits if nmant >= 8 else 8  # bf16 draws 8 bits, as JAX does
     bits = random_bits(key, rng_bits, shape).to(torch.int64) & (
@@ -315,25 +332,54 @@ def _xla_erf_inv(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, x * math.inf, p * x)
 
 
+def _sqrt2_erf_inv(u: torch.Tensor) -> torch.Tensor:
+    """``sqrt2 * erf_inv(u)`` in ``u``'s dtype as XLA on the CPU computes
+    it: f32 step by step; bf16 through f32 (XLA's ``erf_inv`` upcasts
+    bf16), rounded to bf16 before the product, which rounds again."""
+    sqrt2 = _f32(math.sqrt(2.0)).to(u.device)
+    if u.dtype == torch.float32:
+        return sqrt2 * _xla_erf_inv(u)
+    return sqrt2.to(u.dtype) * _xla_erf_inv(u.float()).to(u.dtype)
+
+
+def _check_float(name: str, dtype: torch.dtype) -> None:
+    if dtype not in _FLOAT_LAYOUT:
+        raise TypeError(f"{name} takes {sorted(map(str, _FLOAT_LAYOUT))}, "
+                        f"got {dtype}")
+
+
+def normal(key: torch.Tensor, shape: tuple[int, ...],
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``jax.random.normal(key, shape, dtype)``: ``sqrt2 * erf_inv(u)``
+    with ``u = uniform(key, minval=nextafter(-1, 0), maxval=1)`` (JAX's
+    ``_normal_real``), on the key's device."""
+    _check_float("normal", dtype)
+    minus_one = torch.tensor(-1.0, dtype=dtype)
+    lo = float(torch.nextafter(minus_one, torch.zeros((), dtype=dtype)))
+    return _sqrt2_erf_inv(uniform(key, shape, dtype, minval=lo, maxval=1.0))
+
+
 def truncated_normal(key: torch.Tensor, lower: float, upper: float,
                      shape: tuple[int, ...],
                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """``jax.random.truncated_normal(key, lower, upper, shape)`` in f32:
+    """``jax.random.truncated_normal(key, lower, upper, shape, dtype)``:
     ``u = uniform(key, minval=erf(lower/sqrt2), maxval=erf(upper/sqrt2))``,
     then ``sqrt2 * erf_inv(u)`` clipped to the open interval, on the key's
     device.  After the draw only IEEE-rounded operations run (one torch
     operation each, none fused), so a CUDA key gives the CPU's values
     (``chip_smoke.py`` phase 14 holds a card draw to a CPU draw)."""
-    if dtype != torch.float32:
-        raise TypeError(f"truncated_normal takes float32, got {dtype}")
+    _check_float("truncated_normal", dtype)
     dev = key.device
-    sqrt2 = _f32(math.sqrt(2.0))
-    # XLA's f32 erf gives the correctly rounded value at +-2/sqrt2 (the
-    # tests hold the draws against JAX's)
-    a = float(_f32(math.erf(float(_f32(lower) / sqrt2))))
-    b = float(_f32(math.erf(float(_f32(upper) / sqrt2))))
-    u = uniform(key, shape, torch.float32, minval=a, maxval=b)
-    out = sqrt2.to(dev) * _xla_erf_inv(u)
-    lo = torch.nextafter(_f32(lower), _f32(math.inf)).to(dev)
-    hi = torch.nextafter(_f32(upper), _f32(-math.inf)).to(dev)
+    sqrt2 = torch.tensor(math.sqrt(2.0), dtype=dtype)
+    # XLA's erf gives the correctly rounded value at +-2/sqrt2 (the tests
+    # hold the draws against JAX's); in bf16 it runs in f32 and rounds
+    def bound(v):
+        x = float(torch.tensor(v, dtype=dtype) / sqrt2)
+        return float(torch.tensor(math.erf(x), dtype=dtype))
+    u = uniform(key, shape, dtype, minval=bound(lower), maxval=bound(upper))
+    out = _sqrt2_erf_inv(u)
+    lo = torch.nextafter(torch.tensor(lower, dtype=dtype),
+                         torch.tensor(math.inf, dtype=dtype)).to(dev)
+    hi = torch.nextafter(torch.tensor(upper, dtype=dtype),
+                         torch.tensor(-math.inf, dtype=dtype)).to(dev)
     return torch.minimum(torch.maximum(out, lo), hi)

@@ -12,7 +12,16 @@ contract from the reference's ``hivemind/server/expert_backend.py``
 
 Parameters and optimizer state live on the backend's device (the CUDA
 card unless ``device="cpu"``).  Forward runs under ``torch.no_grad()``;
-backward is ONE autograd re-forward of the batch (the JAX package's
+an expert that maps each row on its own (``apply_fn.
+rows_independent_ndim``, set by ``make_expert``) runs in tiles of
+:data:`ROW_TILE` rows (by device), the last one zero-padded: every
+product then has one shape whatever the batch, so a row's output has
+the same bits in every batch the TaskPool forms around it (a matrix
+product's kernel, on the CPU and on the card, depends on its row
+count).  The gateway's
+coalescing contract rests on this: a stream's row gives the same output
+dispatched alone or in a group.  Backward is
+ONE autograd re-forward of the batch (the JAX package's
 ``jax.vjp``), then the optimizer step written into the parameters in
 place under the state lock.  Torch's grad mode is thread-local and the
 Runtime's thread starts in the default mode, so each entry point sets
@@ -46,6 +55,12 @@ from learning_at_home_tpu_torch.utils.nested import (
 )
 
 logger = logging.getLogger(__name__)
+
+# the rows a row-independent expert's forward evaluates at once, by the
+# backend's device type: on the card a product of 256 rows takes about
+# the time of a smaller one, and most batches fit one tile; on the CPU a
+# padded row costs its share of the work
+ROW_TILE = {"cuda": 256, "cpu": 64}
 
 
 class ExpertBackend:
@@ -146,8 +161,25 @@ class ExpertBackend:
         """Run the expert on one padded batch; returns flat output
         tensors on the device."""
         xs = self._inputs(inputs)
+        row_ndim = getattr(self.apply_fn, "rows_independent_ndim", None)
+        if row_ndim is None or xs[0].dim() < row_ndim:
+            with torch.no_grad():
+                leaves = nested_flatten(self._apply(self.params, xs))
+            self._record_output_schema(leaves)
+            return leaves
+        n, tile = int(xs[0].shape[0]), ROW_TILE[self.device.type]
+        tiles = []
         with torch.no_grad():
-            leaves = nested_flatten(self._apply(self.params, xs))
+            for start in range(0, max(n, 1), tile):
+                part = [x[start:start + tile] for x in xs]
+                rows = int(part[0].shape[0])
+                if rows < tile:
+                    part = [torch.cat([x, x.new_zeros(
+                        (tile - rows, *x.shape[1:]))]) for x in part]
+                out = nested_flatten(self._apply(self.params, part))
+                tiles.append([o[:rows] for o in out])
+        leaves = (tiles[0] if len(tiles) == 1
+                  else [torch.cat(ts) for ts in zip(*tiles)])
         self._record_output_schema(leaves)
         return leaves
 

@@ -90,6 +90,7 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from learning_at_home_tpu_torch.random import PRNGKey
     from learning_at_home_tpu_torch.models.transformer import (
         DMoETransformerConfig,
         DMoETransformerLM,
@@ -97,7 +98,7 @@ def main() -> int:
 
     cfg = DMoETransformerConfig(**FLAGSHIP_8K)
     model = DMoETransformerLM(cfg, device="cuda")
-    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    params = model.init_params(PRNGKey(0))
     prompts = torch.randint(
         0, cfg.vocab_size, (2, 4096), dtype=torch.int32, device="cuda",
         generator=torch.Generator(device="cuda").manual_seed(1))

@@ -24,6 +24,7 @@ from learning_at_home_tpu.client import reset_client_rpc as jax_reset_rpc
 from learning_at_home_tpu.server import lifecycle as jax_lifecycle
 from learning_at_home_tpu.server.server import Server as JaxServer
 from learning_at_home_tpu_torch import optim
+from learning_at_home_tpu_torch import random as jrandom
 from learning_at_home_tpu_torch.client import RemoteMixtureOfExperts
 from learning_at_home_tpu_torch.client.rpc import (
     client_loop,
@@ -370,7 +371,7 @@ def test_drain_during_active_dispatch_zero_failures():
             forward_timeout=20.0, backward_timeout=20.0, alive_ttl=0.4)
         _wait(lambda: len(client_loop().run(
             d_c.get_alive_experts_fresh("lc"))) == 4, "4 experts alive", 30)
-        gate = moe.init_gate_params(torch.Generator().manual_seed(0))
+        gate = moe.init_gate_params(jrandom.PRNGKey(0))
         rs = np.random.RandomState(0)
         failures = 0
         for step in range(16):

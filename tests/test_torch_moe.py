@@ -13,6 +13,7 @@ from learning_at_home_tpu.parallel.mesh import make_mesh
 from learning_at_home_tpu.parallel.sharded_moe import (
     ShardedMixtureOfExperts as JaxMoE,
 )
+from learning_at_home_tpu_torch import random as prng
 from learning_at_home_tpu_torch.ops import moe_dispatch as tmd
 from learning_at_home_tpu_torch.parallel.sharded_moe import (
     ShardedMixtureOfExperts as TorchMoE,
@@ -203,12 +204,13 @@ def test_moe_gradients_match_jax(impl, masked):
 
 def test_moe_init_params_layout():
     moe = TorchMoE(hidden_dim=8, num_experts=4, param_dtype=torch.float32)
-    g = torch.Generator().manual_seed(0)
-    p = moe.init_params(g)
+    p = moe.init_params(prng.PRNGKey(0))
     assert {n: tuple(t.shape) for n, t in p.items()} == {
         "gate": (8, 4), "w1": (4, 8, 32), "b1": (4, 32),
         "w2": (4, 32, 8), "b2": (4, 8)}
-    stacked = moe.init_params(g, lead=(3,))
+    # pod mode's stacked layout: one key a layer, stacked
+    stacked = {"w1": torch.stack([moe.init_params(k)["w1"] for k in
+                                  prng.split(prng.PRNGKey(0), 3)])}
     assert stacked["w1"].shape == (3, 4, 8, 32)
     # lecun-normal: fan-in over the expert and input dims, truncated at 2 std
     std = (1.0 / (4 * 8)) ** 0.5 / 0.87962566103423978

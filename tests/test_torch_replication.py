@@ -23,6 +23,7 @@ from learning_at_home_tpu.client.rpc import pool_registry as jax_pools
 from learning_at_home_tpu.dht import DHT as JaxDHT
 from learning_at_home_tpu.server.server import Server as JaxServer
 from learning_at_home_tpu_torch import optim
+from learning_at_home_tpu_torch import random as jrandom
 from learning_at_home_tpu_torch.client import RemoteMixtureOfExperts
 from learning_at_home_tpu_torch.client.routing import StaticExpertSource
 from learning_at_home_tpu_torch.client.rpc import reset_client_rpc
@@ -129,7 +130,7 @@ def test_torch_replica_of_a_jax_hosted_uid_starts_within_init_tolerance(
                 in_features=H, grid_size=(4,), uid_prefix="rq",
                 source=StaticExpertSource({uid: tsrv.endpoint}), k_best=1,
                 k_min=1, forward_timeout=20.0)
-            gate = moe.init_gate_params(torch.Generator().manual_seed(0))
+            gate = moe.init_gate_params(jrandom.PRNGKey(0))
             y = moe(torch.from_numpy(rows), gate)
             assert torch.isfinite(y).all() and moe.samples_dropped == 0
     finally:

@@ -212,7 +212,8 @@ def test_card_client_against_an_in_process_card_server(card):
             source=StaticExpertSource({f"cu.{i}": ep for i in range(N)}))
         gen = torch.Generator(device="cuda").manual_seed(0)
         gate = {k: v.requires_grad_(True)
-                for k, v in moe.init_gate_params(gen).items()}
+                for k, v in moe.init_gate_params(
+                    PRNGKey(0, device="cuda")).items()}
         x = torch.randn((16, H), generator=gen, device="cuda",
                         requires_grad=True)
         for _ in range(2):

@@ -55,6 +55,7 @@ from learning_at_home_tpu.server.server import (
 )
 from learning_at_home_tpu.utils.subproc import clean_jax_subprocess_env
 from learning_at_home_tpu_torch import optim
+from learning_at_home_tpu_torch import random as jrandom
 from learning_at_home_tpu_torch.client import PipelinedSwarmTrainer
 from learning_at_home_tpu_torch.client.expert import RemoteExpert
 from learning_at_home_tpu_torch.client.routing import StaticExpertSource
@@ -176,7 +177,7 @@ def test_swarm_params_round_trip_and_init_tree():
     _assert_tree_close(swarm_params_to_jax(tparams, tcfg), jparams, "round trip")
     # the port's own init has the JAX tree's structure and shapes
     tmodel = SwarmDMoETransformerLM(tcfg, StaticExpertSource({}))
-    own = tmodel.init_params(torch.Generator().manual_seed(0), device="cpu")
+    own = tmodel.init_params(jrandom.PRNGKey(0), device="cpu")
     own_np = swarm_params_to_jax(own, tcfg)  # checks every shape
     assert jax.tree_util.tree_structure(own_np) == \
         jax.tree_util.tree_structure(jparams)
@@ -193,7 +194,7 @@ def test_init_params_without_a_card_raises(monkeypatch):
     model = SwarmDMoETransformerLM(SwarmTransformerConfig(**_cfg_kw("nc")),
                                    StaticExpertSource({}))
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        model.init_params(torch.Generator().manual_seed(0))
+        model.init_params(jrandom.PRNGKey(0))
 
 
 def test_data_equal_jax(tmp_path):
@@ -243,6 +244,18 @@ def test_apply_matches_jax(twins):
     tloss, tgrads = optim.value_and_grad(tmodel.loss_fn)(tparams, ids, tgt)
     np.testing.assert_allclose(float(tloss), float(jloss), **TOL)
     _assert_tree_close(_port_grads(tmodel, tgrads), _np(jgrads), "grad", **TOL)
+
+
+def test_key_seeded_models_agree_unconverted(twins):
+    """One key, two packages, no conversion: the port's ``init_params``
+    of the JAX model's key gives the JAX model's logits (2e-5)."""
+    jmodel, tmodel, jparams, _, _ = twins
+    ids, _ = _batch(2)
+    jlogits = np.asarray(jmodel.apply(jparams, jnp.asarray(ids)))
+    own = tmodel.init_params(jrandom.PRNGKey(0), device="cpu")
+    with torch.no_grad():
+        tlogits = tmodel.apply(own, ids)
+    np.testing.assert_allclose(tlogits.numpy(), jlogits, atol=2e-5, rtol=2e-5)
 
 
 @pytest.mark.parametrize("overlap", [True, False])
@@ -427,7 +440,7 @@ def test_port_trainer_against_jax_server_through_the_dht(mixed_swarm):
                             procs, ["mj0", "mj1"], GRID[0])
         cfg = SwarmTransformerConfig(**_cfg_kw("mj"))
         model = SwarmDMoETransformerLM(cfg, dht)
-        params = model.init_params(torch.Generator().manual_seed(1),
+        params = model.init_params(jrandom.PRNGKey(1),
                                    device="cpu")
         opt = optim.adamw(3e-3)
         ids, tgt = _batch(30)

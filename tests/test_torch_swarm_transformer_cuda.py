@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from learning_at_home_tpu_torch import optim
+from learning_at_home_tpu_torch import random as jrandom
 from learning_at_home_tpu_torch.client.rpc import reset_client_rpc
 from learning_at_home_tpu_torch.dht import DHT
 from learning_at_home_tpu_torch.models.transformer_swarm import (
@@ -90,7 +91,7 @@ def test_trains_on_the_card_through_a_dht(card):
     with _swarm("cuda", "cd") as (dht, srv):
         model = SwarmDMoETransformerLM(
             SwarmTransformerConfig(**CFG, uid_prefix="cd"), dht)
-        params = model.init_params(torch.Generator().manual_seed(0))
+        params = model.init_params(jrandom.PRNGKey(0))
         assert {t.device.type for t in tree_leaves(params)} == {"cuda"}
         opt = optim.adamw(3e-3)
         step = model.make_train_step(opt)
@@ -113,7 +114,7 @@ def test_first_step_on_the_card_matches_the_cpu(card):
         with _swarm(device, "cc") as (dht, _):
             model = SwarmDMoETransformerLM(
                 SwarmTransformerConfig(**CFG, uid_prefix="cc"), dht)
-            params = model.init_params(torch.Generator().manual_seed(1),
+            params = model.init_params(jrandom.PRNGKey(1),
                                        device=device)
             loss, grads = optim.value_and_grad(model.loss_fn)(
                 params, *_batch(1))

@@ -98,6 +98,19 @@ def test_apply_logits_match_jax(pairs, layout, masked):
                                    atol=1e-5, rtol=1e-4)
 
 
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_key_seeded_models_agree_unconverted(pairs, layout):
+    """One key, two packages, no conversion: the port's ``init_params``
+    of the JAX model's key gives the JAX model's logits (2e-5)."""
+    pair = pairs[layout]
+    ids = _ids(2, (2, 32))
+    jlogits, _ = jax.jit(pair.jmodel.apply)(pair.jparams, jnp.asarray(ids))
+    own = pair.tmodel.init_params(prng.PRNGKey(0))
+    tlogits, _ = pair.tmodel.apply(own, torch.from_numpy(ids))
+    np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits),
+                               atol=2e-5, rtol=2e-5)
+
+
 @pytest.mark.parametrize("use_cache", [True, False])
 def test_greedy_generate_matches_jax_token_for_token(pairs, use_cache):
     pair = pairs["stacked"]
@@ -163,7 +176,7 @@ def test_converter_refuses_a_tree_of_another_config(pairs):
 @pytest.mark.parametrize("layout", list(LAYOUTS))
 def test_init_params_has_the_jax_layout(pairs, layout):
     pair = pairs[layout]
-    params = pair.tmodel.init_params(torch.Generator().manual_seed(0))
+    params = pair.tmodel.init_params(prng.PRNGKey(0))
     want = jax.tree_util.tree_map(lambda a: a.shape, pair.np_tree)
     got = jax.tree_util.tree_map(lambda t: tuple(t.shape), params)
     assert got == want == param_shapes(pair.tcfg)

@@ -3,8 +3,9 @@
 - The verbatim copies (``utils/{sanitizer,flight,asyncio_utils,
   connection,sketch,metrics}.py``, ``server/{staging,task_pool,chaos,
   connection_handler}.py``, ``client/routing.py``,
-  ``averaging/{matchmaking,handler,averager}.py``) are the originals'
-  text with the package name changed in imports, nothing else.
+  ``averaging/{matchmaking,handler,averager}.py``, ``utils/slo.py``,
+  ``gateway/{admission,scheduler}.py``) are the originals' text with the
+  package name changed in imports, nothing else.
 - The wire (``utils/serialization.py``, whose only change is a JAX-free
   ``is_float_dtype``): frames of every codec (``none``, ``bf16``, ``f16``,
   ``u8``, ``blockq8``) are the JAX package's bit for bit, and each side
@@ -37,7 +38,8 @@ VERBATIM = [
     "server/staging.py", "server/task_pool.py", "server/chaos.py",
     "server/connection_handler.py", "client/routing.py",
     "averaging/matchmaking.py", "averaging/handler.py",
-    "averaging/averager.py",
+    "averaging/averager.py", "utils/slo.py", "gateway/admission.py",
+    "gateway/scheduler.py",
 ]
 
 
