@@ -242,6 +242,27 @@ Phases, each of which asserts (none catches its own failure):
                ``mnist_expert --hidden-dim 1024 --steps 100``: the loss
                falls; steps/s and updates applied.
 
+17. mesh     -- the pod tier on meshes of ranks (``parallel/``), the
+               flagship at full width and depth: (a) one NCCL rank, mesh
+               {"data": 1, "expert": 1}: its loss and every gradient leaf
+               bit for bit the single-device model's (``mesh=None``) on
+               the same weights and batch, then MESH_STEPS steps of
+               ``flagship-8k-train`` with phase 7's launches a step; (b)
+               two gloo ranks sharing the card (``parallel/launch.RankGroup``,
+               card tensors staged through pinned host buffers), mesh
+               {"expert": 2}: each rank's init slices bit for bit the
+               global draw's; at seq MESH_CHECK_SEQ with capacity factor
+               E/k (no drops), in f32, the loss and gradient slices
+               against one device (MESH_LOSS_RTOL, MESH_GRAD_RTOL); then
+               MESH_STEPS steps of ``flagship-8k-train`` (2 rows a rank):
+               finite falling losses and phase 7's launches on each rank;
+               (c) the same ranks on {"expert": 1, "seq": 2}: the zigzag
+               ring at seq 8192 in f32 against plain attention on one
+               device that routes its tokens in the zigzag order (the same
+               tokens drop), within MESH_SEQ_LOSS_RTOL and MESH_GRAD_RTOL.
+               Each rank resets and reads its own launch counters; the
+               kernels line sums (a)'s and (b)'s.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA card or
 without the repository's package beside it.
@@ -254,7 +275,8 @@ kernel is built, no kernels line); ``--elastic-only`` runs phases 1 and 14;
 ``--gateway-only`` runs phase 1, phase 13's servers (no training) and
 phase 15 on key-seeded params, then the twins' check;
 ``--experiments-only`` runs phases 1, 2 and 16 ((d) on phase 13's servers
-and key-seeded params; no kernels line).
+and key-seeded params; no kernels line); ``--mesh-only`` runs phases 1, 2
+and 17 (no kernels line).
 """
 
 from __future__ import annotations
@@ -263,6 +285,7 @@ import argparse
 import asyncio
 import contextlib
 import dataclasses
+import gc
 import itertools
 import json
 import math
@@ -277,6 +300,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from learning_at_home_tpu_torch import optim
 from learning_at_home_tpu_torch import random as prng
@@ -326,6 +350,12 @@ from learning_at_home_tpu_torch.ops import moe_dispatch
 from learning_at_home_tpu_torch.ops import token_dispatch as td
 from learning_at_home_tpu_torch.ops.fused_adafactor import fused_adafactor
 from learning_at_home_tpu_torch.parallel import sharded_moe
+from learning_at_home_tpu_torch.parallel.launch import RankGroup
+from learning_at_home_tpu_torch.parallel.mesh import (
+    local_shard,
+    make_mesh,
+    spec_axes,
+)
 from learning_at_home_tpu_torch.models.layers import make_expert
 from learning_at_home_tpu_torch.server import lifecycle
 from learning_at_home_tpu_torch.server.expert_backend import (
@@ -421,7 +451,7 @@ SWARM_LM_BATCH = 8
 SWARM_LM_LR = 3e-4
 SWARM_LM_SERVER = ["--optimizer", "adam", "--lr", str(SWARM_LM_LR),
                    "--max-batch-size", "4096", "--warmup"]
-SWARM_LM_TIMED, SWARM_LM_OVERLAP_STEPS = 5, 3
+SWARM_LM_TIMED, SWARM_LM_OVERLAP_STEPS = 3, 2
 # warm-up steps until the last 3 steps' times, and the experts they
 # called, each lie within 10 % of each other (at most 20 steps)
 SWARM_LM_SETTLE_STEPS, SWARM_LM_SETTLE, SWARM_LM_WARMUP_MAX = 3, 0.1, 20
@@ -598,6 +628,38 @@ LSE_ATOL = 1e-3
 # projections' limits.
 FLASH_LOSS_RTOL, ATTN_GRAD_COSINE, FLASH_GRAD_COSINE = 1e-3, 0.999, 0.9
 ATTN_GRAD_NORM_RTOL = 1e-2
+# phase 17 (mesh), the flagship at full width and depth on meshes of ranks:
+# (a) one NCCL rank, mesh {"data": 1, "expert": 1}, flagship-8k-train;
+# (b) two gloo ranks sharing the card, mesh {"expert": 2}: first a check
+# at seq MESH_CHECK_SEQ (flagship-train's), batch 2 (a row a rank) with
+# capacity factor E/k (no token drops; the one-hot dispatch's [n, E, C]
+# tensors grow with n squared there), then MESH_STEPS steps of
+# flagship-8k-train; (c) the
+# same ranks on {"expert": 1, "seq": 2}, the zigzag ring at seq 8192.
+MESH_STEPS = 3
+MESH_CHECK_SEQ = 256
+MESH_CALL_S = 420.0
+# (b)'s check (aux-loss weight 0: the balance loss is a mean of the shards'
+# own, in JAX too) computes in f32 with bf16 params and the chunked CE: in
+# bf16 the two sides' last-bit differences (a [1, S] and a [2, S] batch
+# take other cuBLAS kernels) tip near-ties of the bf16 gate logits, and an
+# expert whose handful of tokens changes moves its whole gradient (12 % of
+# a w1 leaf's norm on an H100).  In f32 the sides
+# differ by summation order (~1e-6 relative), so the loss within 1e-4
+# relative; gradients of bf16 params are rounded to bf16 (2^-9), a rank's
+# shares once more before their bf16 all-reduce: each leaf's error norm
+# within 2^-6 of its norm.
+MESH_LOSS_RTOL, MESH_GRAD_RTOL = 1e-4, 2.0 ** -6
+# (c)'s check computes in f32 (bf16 params): the zigzag ring and plain
+# attention differ by f32 summation order only (~1e-6 relative), so the
+# loss within 1e-5 relative; gradients of bf16 params are rounded to bf16
+# (2^-9), the seq ranks' shares once more before their bf16 all-reduce:
+# each leaf within 2^-6 in norm.  The recipe's capacity factor drops
+# tokens (over half at the seed's init), and capacity claims go in token
+# order, which the zigzag layout changes: the single-device model routes
+# its tokens in the zigzag order (RoutedInOrder), so both sides drop the
+# same tokens.
+MESH_SEQ_LOSS_RTOL = 1e-5
 ATTN_LEAVES = ("wq", "wk", "wv", "wo")
 
 
@@ -2682,6 +2744,327 @@ def experiments(counters, card: str) -> dict:
     return launches
 
 
+# ---- phase 17: the pod tier on meshes of ranks ----
+
+
+def mesh_counters() -> dict:
+    """A rank's kernel launch counters (the wrappers' counts in its own
+    process)."""
+    return {"flash_attn_fwd": fa.flash_attention,
+            "flash_attn_bwd_dkv": fa.flash_attention_dkv,
+            "flash_attn_bwd_dq": fa.flash_attention_dq,
+            "fused_ce_fwd": fce.ce_forward, "fused_ce_dx": fce.ce_dx,
+            "fused_ce_dhead": fce.ce_dhead,
+            "token_dispatch": td.dispatch_tokens_kernel}
+
+
+def _rank_setup() -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+_T0 = time.perf_counter()
+
+
+def _note(what: str) -> None:
+    """A rank's progress line (the ranks share this script's output)."""
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    print(f"  [rank {rank} +{time.perf_counter() - _T0:.1f} s] {what}",
+          flush=True)
+
+
+def mesh_batch(cfg, batch: int, seed: int, device):
+    """train_batch's ids and targets, drawn on ``device``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    seq = torch.randint(0, cfg.vocab_size, (batch, cfg.seq_len + 1),
+                        dtype=torch.int32, device=device, generator=gen)
+    return seq[:, :-1].contiguous(), seq[:, 1:].contiguous()
+
+
+def _timed(fn, device) -> tuple[object, float]:
+    if torch.device(device).type == "cuda":
+        return timed(fn)
+    t0 = time.perf_counter()
+    return fn(), time.perf_counter() - t0
+
+
+def mesh_train(model, params, ids, tgt) -> dict:
+    """flagship-8k-train's recipe on a mesh rank: a warm-up step, then
+    MESH_STEPS steps with the counters reset just before them; the losses,
+    step times, launches a step and peak memory."""
+    counters = mesh_counters()
+    optimizer = fused_adafactor(1e-3, mesh=model.mesh,
+                                specs=model.param_specs(params))
+    state = model.init_opt_state(optimizer, params)
+    step = model.make_train_step(optimizer)
+    ids, tgt = model.local_batch(ids), model.local_batch(tgt)
+    cuda = model.device.type == "cuda"
+    (params, state, loss0, _), warm_s = _timed(
+        lambda: step(params, state, ids, tgt), model.device)
+    _note(f"warm-up step {warm_s:.2f} s, loss {float(loss0):.5f}")
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    losses, step_ms = [], []
+    for _ in range(MESH_STEPS):
+        (params, state, loss, metrics), dt = _timed(
+            lambda: step(params, state, ids, tgt), model.device)
+        losses.append(float(loss))
+        step_ms.append(dt * 1e3)
+        _note(f"step {dt:.2f} s, loss {losses[-1]:.5f}")
+    launches = read_counts(counters)
+    return {"loss0": float(loss0), "losses": losses, "step_ms": step_ms,
+            "warm_ms": warm_s * 1e3, "launches": launches,
+            "dropped": float(metrics["dropped_fraction"]),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else 0,
+            "rows": ids.shape[0]}
+
+
+def mesh_rank_nccl(config: dict, batch: int, device=None) -> dict:
+    """(a) on the one rank: the loss and every gradient leaf of the mesh
+    {"data": 1, "expert": 1} model against the single-device model
+    (``mesh=None``) on the same weights and batch, bit for bit; then the
+    recipe's steps.  ``device`` None: the rank's card."""
+    _rank_setup()
+    mesh = make_mesh({"data": 1, "expert": 1}, device=device)
+    cfg = DMoETransformerConfig(**config)
+    single = DMoETransformerLM(cfg, device=mesh.device)
+    meshed = DMoETransformerLM(cfg, mesh=mesh)
+    params = meshed.init_params(prng.PRNGKey(SEED))
+    ids, tgt = mesh_batch(cfg, batch, SEED + 2, mesh.device)
+    (l_single, _), g_single = single.value_and_grad(params, ids, tgt)
+    (l_mesh, _), g_mesh = meshed.value_and_grad(params, ids, tgt)
+    differ = [n for n, a, b in zip(leaf_paths(g_single),
+                                   tree_leaves(g_single), tree_leaves(g_mesh))
+              if not torch.equal(a, b)]
+    same_loss = torch.equal(l_single, l_mesh)
+    del g_single, g_mesh
+    out = mesh_train(meshed, params, ids, tgt)
+    out.update(backend=dist.get_backend(), device=str(mesh.device),
+               same_loss=same_loss, differ=differ, loss=float(l_mesh))
+    return out
+
+
+def _slices(tree, model):
+    """The rank's slices of a global tree of ``model``'s layout."""
+    return tree_map(lambda t, spec: local_shard(t, spec, model.mesh),
+                    tree, model.param_specs(tree))
+
+
+def _rel_errors(got, want) -> dict:
+    """{leaf: |got - want| / |want|} in norm, over this rank's leaves."""
+    out = {}
+    for name, a, b in zip(leaf_paths(want), tree_leaves(got),
+                          tree_leaves(want)):
+        nb = float(b.double().norm())
+        out[name] = float((a.double() - b.double()).norm()) / nb if nb else (
+            0.0 if not bool(a.any()) else math.inf)
+    return out
+
+
+class RoutedInOrder:
+    """A MoE layer that routes the flattened tokens in another ``order``
+    (capacity claims go in token order) and returns their outputs in the
+    caller's."""
+
+    def __init__(self, moe, order: torch.Tensor):
+        self.moe, self.order = moe, order
+        self.inverse = torch.argsort(order)
+
+    def __call__(self, params, x, jitter_salt=0, token_mask=None):
+        mask = None if token_mask is None else token_mask[self.order]
+        y, aux = self.moe(params, x[self.order], jitter_salt=jitter_salt,
+                          token_mask=mask)
+        return y[self.inverse], aux
+
+    def __getattr__(self, name):
+        return getattr(self.moe, name)
+
+
+def mesh_check(axes: dict, cfg_mesh, cfg_single, batch: int,
+               device) -> dict:
+    """The mesh model's loss and gradients on this rank against the
+    single-device model's (``cfg_single``) on the same weights and batch:
+    the rank compares its own slices.  With a zigzag layout the single
+    device routes its tokens in the layout's order."""
+    mesh = make_mesh(axes, device=device)
+    single = DMoETransformerLM(cfg_single, device=device)
+    meshed = DMoETransformerLM(cfg_mesh, mesh=mesh)
+    if meshed._zig is not None:
+        s = cfg_single.seq_len
+        zig = torch.as_tensor(meshed._zig, device=device)
+        single.moe = RoutedInOrder(single.moe, torch.cat(
+            [row * s + zig for row in range(batch)]))
+    params = single.init_params(prng.PRNGKey(SEED))
+    ids, tgt = mesh_batch(cfg_single, batch, SEED + 4, device)
+    _note(f"{axes}: the single-device model's value_and_grad")
+    (l_single, m_single), g_single = single.value_and_grad(params, ids, tgt)
+    init_same = None  # no leaf split: the rank holds the whole tree
+    if any(mesh.size(spec_axes(spec)) > 1
+           for spec in tree_leaves(meshed.param_specs(params))):
+        # keep the rank's slices only, then draw the mesh model's own
+        g_single = tree_map(torch.clone, _slices(g_single, meshed))
+        want = tree_map(torch.clone, _slices(params, meshed))
+        del params
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+        params = meshed.init_params(prng.PRNGKey(SEED))
+        init_same = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(want), tree_leaves(params)))
+        del want
+    local = params
+    del params
+    _note(f"{axes}: the mesh model's value_and_grad")
+    t0 = time.perf_counter()
+    (l_mesh, m_mesh), g_mesh = meshed.value_and_grad(
+        local, meshed.local_batch(ids), meshed.local_batch(tgt))
+    _note(f"{axes}: done in {time.perf_counter() - t0:.2f} s")
+    errors = _rel_errors(g_mesh, g_single)
+    zero = [n for n, g in zip(leaf_paths(g_mesh), tree_leaves(g_mesh))
+            if not bool(g.any())]
+    return {"loss_single": float(l_single), "loss_mesh": float(l_mesh),
+            "dropped": (float(m_single["dropped_fraction"]),
+                        float(m_mesh["dropped_fraction"])),
+            "errors": errors, "init_same": init_same, "zero": zero}
+
+
+def mesh_rank_expert(config: dict, batch: int, check_seq: int,
+                     device: str) -> dict:
+    """(b) on one of two gloo ranks sharing ``device``, mesh
+    {"expert": 2}."""
+    _rank_setup()
+    # the balance loss is the mean of the shards' (the JAX layer's pmean,
+    # not the whole batch's), so the check leaves it out: aux weight 0;
+    # f32 compute (module constants, MESH_GRAD_RTOL)
+    cfg = DMoETransformerConfig(**dict(
+        config, seq_len=check_seq, aux_loss_weight=0.0, dtype=torch.float32,
+        ce_impl="chunked",
+        capacity_factor=config["num_experts"] / config["k"]))
+    out = {"check": mesh_check({"expert": 2}, cfg, cfg, 2, device)}
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    mesh = make_mesh({"expert": 2}, device=device)
+    cfg = DMoETransformerConfig(**config)
+    model = DMoETransformerLM(cfg, mesh=mesh)
+    params = model.init_params(prng.PRNGKey(SEED))
+    ids, tgt = mesh_batch(cfg, batch, SEED + 2, device)
+    out["train"] = mesh_train(model, params, ids, tgt)
+    out["stage"] = mesh.stage
+    return out
+
+
+def mesh_rank_seq(config: dict, device: str) -> dict:
+    """(c) on one of the two gloo ranks, mesh {"expert": 1, "seq": 2}: the
+    zigzag ring at the config's length, in f32, against plain attention on
+    one device."""
+    _rank_setup()
+    # the CE takes the chunked path under a seq axis; the single device's
+    # too (the fused kernels take bf16 operands)
+    base = dict(config, dtype=torch.float32, ce_impl="chunked")
+    cfg_mesh = DMoETransformerConfig(**dict(base, seq_parallel=True,
+                                            seq_layout="zigzag"))
+    cfg_single = DMoETransformerConfig(**dict(base, attn_impl="xla"))
+    return mesh_check({"expert": 1, "seq": 2}, cfg_mesh, cfg_single, 1,
+                      device)
+
+
+def mesh_phase(card: str, config: dict = FLAGSHIP_8K_TRAIN,
+               batch: int = TRAIN_8K_BATCH, check_seq: int = MESH_CHECK_SEQ,
+               device: str = "cuda") -> dict:
+    """Phase 17; returns each arm's launches (summed over its ranks).
+    ``device="cpu"`` rehearses it on the CPU at a small ``config`` (gloo
+    in (a) too, the kernels' plain versions: no launches)."""
+    t0 = time.perf_counter()
+    on_card = device == "cuda"
+    rank_device = "cuda:0" if on_card else "cpu"
+    if on_card:
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"this process holds {torch.cuda.memory_allocated() / 1e9:.2f} "
+              "GB of the card while the ranks run")
+    want = {"flash_attn_fwd": 8, "flash_attn_bwd_dkv": 4,
+            "flash_attn_bwd_dq": 4, "fused_ce_fwd": 1, "fused_ce_dx": 1,
+            "fused_ce_dhead": 1, "token_dispatch": 0}  # phase 7's a step
+    if not on_card:
+        want = dict.fromkeys(want, 0)
+
+    def per_step(run):
+        return {k: n / MESH_STEPS for k, n in run["launches"].items()}
+
+    def report(label, run):
+        med = statistics.median(run["step_ms"])
+        print(f"{label}: losses {[round(run['loss0'], 5)] + [round(x, 5) for x in run['losses']]}; "
+              f"step ms {[round(x, 1) for x in run['step_ms']]} (median "
+              f"{med:.1f}, warm-up {run['warm_ms']:.1f}); {run['rows']} rows "
+              f"x {config['seq_len']} a rank; dropped {run['dropped']:.4f}; peak "
+              f"{run['peak_gb']:.2f} GB; launches a step {per_step(run)}")
+        assert all(math.isfinite(x) for x in run["losses"]), run["losses"]
+        assert run["losses"][-1] < run["loss0"], "the loss did not fall"
+        assert per_step(run) == want, (per_step(run), want)
+
+    with RankGroup(1, backend="nccl" if on_card else "gloo",
+                   timeout_s=MESH_CALL_S) as group:
+        a = group.run(mesh_rank_nccl, config, batch,
+                      None if on_card else "cpu")[0]
+    print(f"(a) {a['backend']} rank on {a['device']}, mesh data 1 x expert "
+          f"1 against mesh=None, flagship-8k-train batch {batch}: "
+          f"loss {a['loss']:.6f} bit for bit {a['same_loss']}; gradient "
+          f"leaves that differ: {a['differ']}")
+    assert a["backend"] == ("nccl" if on_card else "gloo")
+    assert a["same_loss"] and not a["differ"], "mesh of one rank != mesh=None"
+    report("(a) flagship-8k-train on the NCCL rank", a)
+    with RankGroup(2, backend="gloo", timeout_s=MESH_CALL_S) as group:
+        t1 = time.perf_counter()
+        b = group.run(mesh_rank_expert, config, batch, check_seq, rank_device)
+        tb = time.perf_counter() - t1
+        c = group.run(mesh_rank_seq, config, rank_device)
+        tc = time.perf_counter() - t1 - tb
+    for rank, out in enumerate(b):
+        chk = out["check"]
+        worst = max(chk["errors"].items(), key=lambda kv: kv[1])
+        rel = abs(chk["loss_mesh"] - chk["loss_single"]) / abs(chk["loss_single"])
+        print(f"(b) rank {rank} (gloo, staged through the host: "
+              f"{out['stage']}), expert 2 against one device at seq "
+              f"{check_seq} in f32, capacity factor E/k, aux weight 0: loss "
+              f"{chk['loss_mesh']:.6f} vs {chk['loss_single']:.6f} (rel "
+              f"{rel:.2e}); dropped {chk['dropped']}; init slices bit for "
+              f"bit {chk['init_same']}; worst leaf {worst[0]} {worst[1]:.2e}")
+        assert chk["init_same"], "a rank's init slices != the global draw's"
+        assert chk["dropped"] == (0.0, 0.0), chk["dropped"]
+        assert not chk["zero"], chk["zero"]
+        assert rel <= MESH_LOSS_RTOL, rel
+        assert worst[1] <= MESH_GRAD_RTOL, worst
+        report(f"(b) rank {rank}, flagship-8k-train on expert 2", out["train"])
+    for rank, chk in enumerate(c):
+        worst = max(chk["errors"].items(), key=lambda kv: kv[1])
+        rel = abs(chk["loss_mesh"] - chk["loss_single"]) / abs(chk["loss_single"])
+        print(f"(c) rank {rank}, expert 1 x seq 2, the zigzag ring at seq "
+              f"{config['seq_len']} in f32 against plain attention on one "
+              f"device routing in the zigzag order: loss "
+              f"{chk['loss_mesh']:.6f} vs {chk['loss_single']:.6f} (rel "
+              f"{rel:.2e}); dropped {chk['dropped']}; worst leaf {worst[0]} "
+              f"{worst[1]:.2e}")
+        # the same tokens dropped on both sides: the same routing
+        assert chk["dropped"][0] == chk["dropped"][1], chk["dropped"]
+        assert not chk["zero"], chk["zero"]
+        assert rel <= MESH_SEQ_LOSS_RTOL, rel
+        assert worst[1] <= MESH_GRAD_RTOL, worst
+    print(f"mesh phase: {time.perf_counter() - t0:.1f} s ((b) {tb:.1f} s, "
+          f"(c) {tc:.1f} s); {card}")
+
+    def summed(runs):
+        return {k: sum(r["launches"][k] for r in runs) for k in want}
+
+    return {
+        f"mesh (a) nccl data 1 x expert 1 ({MESH_STEPS} steps)":
+            a["launches"],
+        f"mesh (b) gloo expert 2, both ranks ({MESH_STEPS} steps)":
+            summed([o["train"] for o in b]),
+        "mesh (c) gloo expert 1 x seq 2 (one value_and_grad, not counted)":
+            dict.fromkeys(want, 0),
+    }
+
+
 # ---- phase 14: the elastic swarm ----
 
 
@@ -3386,6 +3769,9 @@ def main() -> int:
                     help="phases 1 and 15 only, on phase 13's servers "
                          "serving key-seeded params (no training, no "
                          "kernel is built), and the twins' decoders")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="phases 1, 2 and 17 only (the pod tier on meshes "
+                         "of ranks; no kernels line)")
     ap.add_argument("--experiments-only", action="store_true",
                     help="phases 1, 2 and 16 only (the experiment drivers; "
                          "(d) on phase 13's servers serving key-seeded "
@@ -3416,6 +3802,13 @@ def main() -> int:
     if args.elastic_only:
         phase("elastic swarm-elastic-d512")
         elastic(counters, card)
+        print(card)
+        return 0
+    if args.mesh_only:
+        phase("build")
+        build.build_all(sorted(build.LIBRARIES))
+        phase("mesh")
+        mesh_phase(card)
         print(card)
         return 0
     if args.experiments_only:
@@ -3485,6 +3878,10 @@ def main() -> int:
 
     phase("experiment drivers")
     launches.update(experiments(counters, card))
+
+    phase("mesh")
+    plans.clear()  # the dispatch plans' card tensors: the ranks need room
+    launches.update(mesh_phase(card))
 
     kernels = []
     for name, (source, replaces, shape) in KERNELS.items():

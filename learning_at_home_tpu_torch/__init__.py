@@ -23,6 +23,9 @@ averaging (``averaging/``), graceful drain, handoff and migration
 frame pump (``native/``); the serving gateway (``gateway/``); and the
 experiment drivers a user runs (``experiments/``: ``train_lm``,
 ``generate_lm``, ``loadgen``, ``churn_experiment`` and the rest, with
-``sim/trace.py`` and ``utils/subproc.py``).  Entry points run on the
-CUDA card unless given ``device="cpu"``.
+``sim/trace.py`` and ``utils/subproc.py``); and the pod tier on many
+cards (``parallel/``: meshes of ``torch.distributed`` ranks with expert,
+data, tensor and sequence parallelism, ring attention, the collectives
+as autograd functions).  Entry points run on the CUDA card unless given
+``device="cpu"``.
 """

@@ -19,6 +19,14 @@ carries across.
 the swarm DMoE-Transformer's trunk and gates (``models/
 transformer_swarm.py``; its experts live on the servers).
 
+On a mesh (``parallel/mesh.py``) :func:`params_from_jax` and
+:func:`opt_state_from_jax` take a ``mesh`` (and a ``rank``, for a rank
+other than the mesh's own, or axis sizes in place of a mesh) and return
+that rank's slices of the JAX global tree: the expert stacks split as
+``ShardedMixtureOfExperts.param_specs`` says, every other param whole; an
+optimizer state leaf takes its param's spec where it has the param's
+shape (``mesh.opt_state_shardings``' rule), else is whole.
+
 :func:`expert_from_jax` and :func:`expert_to_jax` carry one swarm
 expert's parameters (flax's ``{"params": ...}`` tree, ``models/layers.py``)
 and its ``optax.adam`` or ``optax.sgd`` state across, as numpy arrays.
@@ -42,6 +50,13 @@ from learning_at_home_tpu_torch.optim import (
     FactoredState,
     ScaleByAdamState,
 )
+from learning_at_home_tpu_torch.parallel.mesh import (
+    P,
+    Mesh,
+    local_shard,
+    mesh_layout,
+)
+from learning_at_home_tpu_torch.parallel.sharded_moe import expert_param_specs
 from learning_at_home_tpu_torch.tree import tree_map
 
 
@@ -118,7 +133,7 @@ def _to_tensor(arr, device: torch.device) -> torch.Tensor:
     return numpy_to_tensor(np.array(np.asarray(arr), copy=True), device)
 
 
-def _to_numpy(t: torch.Tensor) -> np.ndarray:
+def _to_numpy(t: torch.Tensor, path: str = "") -> np.ndarray:
     return np.array(tensor_to_numpy(t), copy=True)
 
 
@@ -143,16 +158,61 @@ def _convert(tree, shapes, path: str, leaf_fn):
         raise ValueError(
             f"{path}: expected shape {shapes}, got {tuple(tree.shape)}"
         )
-    return leaf_fn(tree)
+    return leaf_fn(tree, path)
 
 
-def params_from_jax(tree, cfg, device=None):
+def _layout(mesh, rank) -> Mesh | None:
+    """The mesh whose rank's slices to take: ``mesh`` itself, or its
+    layout (axis sizes, or a mesh's) at ``rank``."""
+    if mesh is None:
+        return None
+    axes = mesh.shape if isinstance(mesh, Mesh) else dict(mesh)
+    if rank is None:
+        if not isinstance(mesh, Mesh):
+            raise ValueError("axis sizes need a rank")
+        return mesh
+    return mesh_layout(axes, rank)
+
+
+def _param_spec(path: str, shape, cfg, mesh: Mesh) -> P:
+    """The spec of the leaf at ``path`` (``/``-separated, a state's field
+    first where ``path`` is a state leaf's) when it has its param's shape,
+    else replicated."""
+    parts = [p for p in path.split("/") if p]
+    if "moe" not in parts:
+        return P()
+    name = parts[-1]
+    lead = (cfg.n_layers,) if cfg.stack_layers else ()
+    e, d, f = cfg.num_experts, cfg.d_model, 4 * cfg.d_model
+    full = {"gate": (d, e), "w1": (e, d, f), "b1": (e, f), "w2": (e, f, d),
+            "b2": (e, d)}[name]
+    if tuple(shape) != (*lead, *full):
+        return P()
+    spec = expert_param_specs(mesh.size("model"))[name]
+    return P(None, *spec) if cfg.stack_layers else spec
+
+
+def _leaf_to_tensor(cfg, mesh: Mesh | None, device):
+    """The leaf function of a conversion to the port: numpy → the rank's
+    slice (with a mesh) → a tensor on ``device``."""
+    def fn(arr, path):
+        arr = np.asarray(arr)
+        if mesh is not None:
+            arr = local_shard(arr, _param_spec(path, arr.shape, cfg, mesh),
+                              mesh)
+        return _to_tensor(arr, device)
+
+    return fn
+
+
+def params_from_jax(tree, cfg, device=None, mesh=None, rank=None):
     """The JAX package's param tree (numpy arrays) → the port's tree of
     tensors on ``device`` (None: the CUDA card).  ``cfg`` is the port's or
-    the JAX package's config; the tree must match its layout and shapes."""
+    the JAX package's config; the tree must match its layout and shapes.
+    With ``mesh`` the rank's slices (module docstring)."""
     dev = resolve_device(device)
     return _convert(tree, param_shapes(cfg), "",
-                    lambda arr: _to_tensor(arr, dev))
+                    _leaf_to_tensor(cfg, _layout(mesh, rank), dev))
 
 
 def params_to_jax(params, cfg):
@@ -183,7 +243,7 @@ def swarm_params_from_jax(tree, cfg, device=None) -> dict:
     ``device`` (None: the CUDA card); ``layers`` is a list as in JAX."""
     dev = resolve_device(device)
     out = _convert(tree, swarm_param_shapes(cfg), "",
-                   lambda arr: _to_tensor(arr, dev))
+                   lambda arr, _: _to_tensor(arr, dev))
     out["layers"] = list(out["layers"])
     return out
 
@@ -216,7 +276,7 @@ def _is_adafactor_chain(state) -> bool:
             and all(len(s) == 0 for s in state[1:]))
 
 
-def opt_state_from_jax(state, cfg, device=None):
+def opt_state_from_jax(state, cfg, device=None, mesh=None, rank=None):
     """The JAX package's optimizer state (numpy leaves) → the port's.
 
     ``state`` is a ``FusedAdafactorState`` of ``ops/fused_adafactor.py``
@@ -226,11 +286,12 @@ def opt_state_from_jax(state, cfg, device=None):
     ``ScaleByAdamState``); the matching port state
     (``FusedAdafactorState``, ``optim.adafactor``'s tuple or
     ``optim.AdamWState``) comes back on ``device`` (None: the CUDA
-    card)."""
+    card); with ``mesh`` the rank's slices (module docstring)."""
     dev = resolve_device(device)
+    leaf = _leaf_to_tensor(cfg, _layout(mesh, rank), dev)
 
     def conv(tree, shapes, path):
-        return _convert(tree, shapes, path, lambda a: _to_tensor(a, dev))
+        return _convert(tree, shapes, path, leaf)
 
     def factored(cls, st):
         return cls(

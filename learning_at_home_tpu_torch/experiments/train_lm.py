@@ -3,10 +3,16 @@
 The port of ``experiments/train_lm.py``: its flags, JSON lines and exit
 codes, plus ``--device`` (default: the CUDA card; without one it raises).
 
-- ``--mode pod``   : one device, no mesh: the MoE layers' experts on the
-  card, one train step a batch (bf16 compute on the card, f32 on the CPU,
-  the JAX script's rule); ``--optimizer adamw`` or ``adafactor`` (optax's
-  chain, ``optim.adafactor``), checkpoint and resume.
+- ``--mode pod``   : the MoE layers' experts on the card, one train step a
+  batch (bf16 compute on the card, f32 on the CPU, the JAX script's rule);
+  ``--optimizer adamw`` or ``adafactor`` (optax's chain,
+  ``optim.adafactor``), checkpoint and resume.  Launched on N ranks
+  (``torchrun --nproc-per-node N -m
+  learning_at_home_tpu_torch.experiments.train_lm --mode pod ...``) it
+  runs on the JAX script's mesh ``{"data": dp, "expert": N // dp}`` (dp 2
+  when N is even and > 2, else 1), over ``nccl`` on the cards or ``gloo``
+  with ``--device cpu``; each rank trains on its rows of every batch and
+  rank 0 prints.  Checkpoints on more than one rank are not ported yet.
 - ``--mode swarm`` : the decentralized path -- this process starts N
   expert servers and a DHT swarm on localhost (in-process, or
   ``--subprocess-servers`` through ``python -m
@@ -21,6 +27,8 @@ synthetic Zipfian corpus (``models/data.py``).
 Examples:
   python -m learning_at_home_tpu_torch.experiments.train_lm --mode pod \\
       --steps 200
+  torchrun --nproc-per-node 4 -m \\
+      learning_at_home_tpu_torch.experiments.train_lm --mode pod --steps 200
   python -m learning_at_home_tpu_torch.experiments.train_lm --mode swarm \\
       --experts-per-layer 16 --n-servers 2 --steps 50 --device cpu
 """
@@ -192,10 +200,43 @@ def _ids(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
+def _pod_mesh(args, dev):
+    """The JAX script's mesh over the job's ranks, or None for one rank
+    (the single-device model).  Joins the job ``torchrun`` describes in
+    the environment when no process group exists yet."""
+    import torch
+    import torch.distributed as dist
+
+    from learning_at_home_tpu_torch.parallel.mesh import make_mesh, rank_device
+
+    if not dist.is_initialized():
+        if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+            return None
+        if dev.type != "cpu":
+            torch.cuda.set_device(rank_device(args.device))
+        dist.init_process_group("gloo" if dev.type == "cpu" else "nccl")
+    n = dist.get_world_size()
+    if n == 1:
+        return None
+    dp = 2 if n % 2 == 0 and n > 2 else 1
+    # the rank's card (cuda:LOCAL_RANK) unless --device names one
+    mesh = make_mesh({"data": dp, "expert": n // dp}, device=args.device)
+    if args.batch_size % n:
+        raise SystemExit(
+            f"--batch-size {args.batch_size} must be divisible by the "
+            f"{n} batch shards of mesh {mesh.shape}"
+        )
+    if args.checkpoint_dir:
+        raise SystemExit("--checkpoint-dir on more than one rank is not "
+                         "ported yet (ROADMAP.md, queue 1)")
+    return mesh
+
+
 def run_pod(args) -> dict:
     """The pod-mode loop.  Returns ``{"losses": [...], "wall_s": [...]}``:
     the unrounded loss and the seconds since the first step at each
-    logged step (the loss read waits for the step's work)."""
+    logged step (the loss read waits for the step's work).  On a mesh
+    every rank returns them and rank 0 prints."""
     import torch
 
     from learning_at_home_tpu_torch import optim
@@ -211,6 +252,10 @@ def run_pod(args) -> dict:
     )
 
     dev = _device(args)
+    mesh = _pod_mesh(args, dev)
+    if mesh is not None:
+        dev = mesh.device
+    printing = mesh is None or mesh.rank == 0
     cfg = DMoETransformerConfig(
         vocab_size=VOCAB_SIZE,
         d_model=args.d_model,
@@ -225,10 +270,11 @@ def run_pod(args) -> dict:
         aux_loss_weight=args.aux_weight,
         gating=args.gating,
     )
-    model = DMoETransformerLM(cfg, device=dev)
+    model = DMoETransformerLM(cfg, device=dev, mesh=mesh)
     params = model.init_params(prng.PRNGKey(args.seed))
-    optimizer = (optim.adafactor(args.lr) if args.optimizer == "adafactor"
-                 else optim.adamw(args.lr))
+    optimizer = (optim.adafactor(args.lr, mesh=mesh,
+                                 specs=model.param_specs(params))
+                 if args.optimizer == "adafactor" else optim.adamw(args.lr))
     opt_state = model.init_opt_state(optimizer, params)
     step_fn = model.make_train_step(optimizer)
 
@@ -254,7 +300,8 @@ def run_pod(args) -> dict:
     t0 = time.perf_counter()
     for step, (ids, tgt) in zip(range(start_step, args.steps), batches):
         params, opt_state, loss, metrics = step_fn(
-            params, opt_state, _ids(ids), _ids(tgt))
+            params, opt_state, model.local_batch(_ids(ids)),
+            model.local_batch(_ids(tgt)))
         if ckpt and args.checkpoint_every and \
                 (step + 1) % args.checkpoint_every == 0:
             ckpt.save(step + 1, params, opt_state)
@@ -265,6 +312,8 @@ def run_pod(args) -> dict:
             out["wall_s"].append(elapsed)
             tps = ((step + 1 - start_step) * args.batch_size * args.seq_len
                    / elapsed)
+            if not printing:
+                continue
             print(json.dumps({
                 "step": step,
                 "loss": round(value, 4),

@@ -1,11 +1,28 @@
 """DMoE-Transformer language model in pod mode: forward, serving, training.
 
-The PyTorch counterpart of ``learning_at_home_tpu/models/transformer.py``
-for one device: a causal Transformer LM whose FFNs are mixtures of
-experts (``parallel/sharded_moe.py``), with the full re-forward decoder
-and the KV-cache decoder of ``generate``, the loss (the chunked
-cross-entropy, or the fused one of ``ops/fused_ce.py`` with its Hopper
-kernels), per-layer remat and the train step with gradient accumulation.
+The PyTorch counterpart of ``learning_at_home_tpu/models/transformer.py``:
+a causal Transformer LM whose FFNs are mixtures of experts
+(``parallel/sharded_moe.py``), with the full re-forward decoder and the
+KV-cache decoder of ``generate``, the loss (the chunked cross-entropy, or
+the fused one of ``ops/fused_ce.py`` with its Hopper kernels), per-layer
+remat and the train step with gradient accumulation.  It runs on one
+device (``mesh=None``) or as one rank of a mesh (``parallel/mesh.py``).
+
+On a mesh each rank computes what its JAX ``shard_map`` shard computes.
+Experts are split over ``expert`` (their FFN dim over ``model``); a rank
+holds its rows of the batch (:meth:`DMoETransformerLM.local_batch`: rows
+split over the data axes ``data`` and ``expert``, and with
+``seq_parallel`` its chunk of the sequence, in the zigzag order by
+default, attention running as a ring over ``seq``; the MoE gathers the
+row's chunks over ``seq`` as XLA's reshard does).  ``loss_fn`` returns the
+global loss; its gradient on a rank is that rank's share, and
+``value_and_grad`` sums the shares of each leaf over the token axes that
+do not split it: replicated leaves over ``data``, ``expert`` and ``seq``,
+expert leaves over ``data`` and ``seq`` (the all-to-all's backward brings
+each expert its peers' cotangents), never over ``model``.  ``generate``
+takes the whole prompt on every rank and returns the whole output there:
+the trunk runs on every row alike and the MoE on the rank's share of the
+tokens (``replicated=True`` of ``apply``).
 
 Parameters are an explicit tree of tensors with the JAX package's names,
 shapes and layouts (stacked layers with a leading ``n_layers`` dim, or a
@@ -14,9 +31,7 @@ compare leaf by leaf.  Each layer passes its index to the MoE as the
 router-jitter salt.  Remat ``"full"`` keeps only each layer's input;
 ``"dots"`` also keeps the outputs of the layer's products without batch
 dims (the projections and the gate), as JAX's
-``dots_with_no_batch_dims_saveable``.  Sequence parallelism is not ported
-yet; it raises ``NotImplementedError`` naming the ROADMAP.md item that
-ports it.
+``dots_with_no_batch_dims_saveable``.
 """
 
 from __future__ import annotations
@@ -26,6 +41,7 @@ import functools
 import logging
 from typing import Any, Callable
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
@@ -48,6 +64,19 @@ from learning_at_home_tpu_torch.models.trunk import (
 )
 from learning_at_home_tpu_torch.ops.fused_ce import _check, fused_softmax_ce
 from learning_at_home_tpu_torch.optim import apply_updates
+from learning_at_home_tpu_torch.parallel import comm
+from learning_at_home_tpu_torch.parallel.mesh import (
+    P,
+    data_axes,
+    local_shard,
+    spec_axes,
+    token_axes,
+)
+from learning_at_home_tpu_torch.parallel.ring_attention import (
+    local_ring_fn,
+    make_ring_attention,
+    zigzag_indices,
+)
 from learning_at_home_tpu_torch.parallel.sharded_moe import (
     ShardedMixtureOfExperts,
 )
@@ -58,8 +87,6 @@ Params = Any
 # the prefix of the profiler ranges the model opens: each layer's
 # attention and MoE, the loss, the backward and the optimizer update
 PROFILE_RANGE = "dmoe/"
-TRAINING_ITEM = ("ROADMAP.md, queue 1 item 3, the multi-card pod tier "
-                 "(ring attention)")
 # the products without batch dims: under remat "dots" their outputs are
 # saved and everything else in the layer is recomputed (batched products,
 # elementwise ops, routing, the custom kernels)
@@ -120,10 +147,17 @@ class DMoETransformerLM:
     """Functional model: explicit param tree, ``apply`` and ``generate``.
 
     ``device`` is where parameters are made and the model runs; None means
-    the CUDA card (see :func:`~learning_at_home_tpu_torch.device.resolve_device`).
+    the CUDA card (see :func:`~learning_at_home_tpu_torch.device.resolve_device`),
+    on a mesh the rank's device (``mesh.device``).  ``mesh`` (a
+    ``parallel.mesh.Mesh`` with an ``expert`` axis) runs the model as one
+    rank of it; None keeps the single-device model.
     """
 
-    def __init__(self, config: DMoETransformerConfig, device=None):
+    def __init__(self, config: DMoETransformerConfig, device=None,
+                 mesh=None):
+        self.mesh = mesh
+        if device is None and mesh is not None:
+            device = mesh.device
         self.device = resolve_device(device)
         if config.attn_impl == "auto":
             impl = (
@@ -138,11 +172,6 @@ class DMoETransformerLM:
             raise ValueError(
                 "scan_layers=True requires stack_layers=True (the JAX scan "
                 "consumes the stacked param tree)"
-            )
-        if config.seq_parallel:
-            raise NotImplementedError(
-                f"seq_parallel (ring attention) is not ported yet: "
-                f"{TRAINING_ITEM}"
             )
         if config.remat and config.remat_policy not in ("full", "dots"):
             raise ValueError(
@@ -160,7 +189,87 @@ class DMoETransformerLM:
             param_dtype=config.param_dtype,
             router_jitter=config.router_jitter,
             gating=config.gating,
+            mesh=mesh,
         )
+        self._ring_local = self._ring_global = None
+        self._zig = self._zig_inv = None
+        self._layout = None  # global positions in the sequence's layout order
+        n_seq = 1 if mesh is None else mesh.size("seq")
+        if config.seq_parallel:
+            if mesh is None or "seq" not in mesh.axis_names:
+                raise ValueError("seq_parallel=True requires a 'seq' mesh axis")
+            layout = config.seq_layout
+            if layout == "zigzag" and config.seq_len % (2 * n_seq):
+                logging.getLogger(__name__).warning(
+                    "seq_len %d not divisible by 2*%d -- falling back to the "
+                    "contiguous ring layout (zigzag needs paired chunks)",
+                    config.seq_len, n_seq,
+                )
+                layout = "contiguous"
+            if layout == "zigzag":
+                # the residual stream is permuted once at the model
+                # boundary; the ring consumes the zigzag order directly
+                self._zig = zigzag_indices(config.seq_len, n_seq)
+                self._zig_inv = np.argsort(self._zig)
+                self._layout = self._zig
+            else:
+                self._layout = np.arange(config.seq_len)
+            self._ring_local = local_ring_fn(mesh, causal=True, layout=layout)
+            self._ring_global = make_ring_attention(
+                mesh, causal=True, layout=layout,
+                pre_permuted=self._zig is not None)
+        elif n_seq > 1:
+            raise ValueError("a 'seq' mesh axis needs seq_parallel=True")
+
+    # ---- the mesh layout ----
+
+    def local_positions(self) -> np.ndarray | None:
+        """The global positions of this rank's sequence columns, in its
+        layout order; None when each rank holds whole rows."""
+        if self._layout is None:
+            return None
+        n, i = self.mesh.size("seq"), self.mesh.index("seq")
+        c = self.cfg.seq_len // n
+        return self._layout[i * c: (i + 1) * c]
+
+    def local_batch(self, batch):
+        """This rank's part of a global [B, S] batch (ids, targets, a
+        mask; a tensor or an array): its rows over the data axes and, with
+        ``seq_parallel``, its columns in the layout order.  The identity
+        without a mesh."""
+        if self.mesh is None:
+            return batch
+        axes = data_axes(self.mesh)
+        n, i = self.mesh.size(axes), self.mesh.index(axes)
+        if batch.shape[0] % n:
+            raise ValueError(f"batch of {batch.shape[0]} rows must divide "
+                             f"across the mesh's {n} batch shards")
+        rows = batch.shape[0] // n
+        out = batch[i * rows: (i + 1) * rows]
+        cols = self.local_positions()
+        if cols is not None:
+            if batch.shape[1] != self.cfg.seq_len:
+                raise ValueError(f"the sequence layout was built for seq_len "
+                                 f"{self.cfg.seq_len}, got {batch.shape[1]}")
+            out = out[:, torch.as_tensor(cols) if torch.is_tensor(out)
+                      else cols]
+        return out
+
+    def param_specs(self, params: Params) -> Params:
+        """A tree like ``params`` of each leaf's spec: the expert stacks'
+        (a leading None for the stacked layer dim), every other leaf
+        replicated."""
+        moe = self.moe.param_specs(stacked=self.cfg.stack_layers)
+
+        def assign(tree, in_moe=False):
+            if isinstance(tree, dict):
+                return {key: moe[key] if in_moe else assign(val, key == "moe")
+                        for key, val in tree.items()}
+            if isinstance(tree, (tuple, list)):  # the tuple layout
+                return type(tree)(assign(val) for val in tree)
+            return P()
+
+        return assign(params)
 
     # ---- parameters ----
 
@@ -190,7 +299,7 @@ class DMoETransformerLM:
                 "wv": lecun_normal(ks[2], (d, d), pdt),
                 "wo": lecun_normal(ks[3], (d, d), pdt),
                 "ln2": ln(),
-                "moe": self.moe.init_params(ks[4]),
+                "moe": self.moe.init_params(ks[4], shard=False),
             }
 
         layers = tuple(init_layer(k) for k in prng.split(k_layers, n_layers))
@@ -205,6 +314,12 @@ class DMoETransformerLM:
         }
         if not cfg.tie_embeddings:
             params["lm_head"] = lecun_normal(k_head, (d, v), pdt)
+        if self.mesh is not None:
+            # each rank keeps its slices of the global draw
+            params = tree_map(
+                lambda p, spec: local_shard(p, spec, self.mesh).clone()
+                if spec_axes(spec) else p,
+                params, self.param_specs(params))
         return params
 
     # ---- forward ----
@@ -215,44 +330,110 @@ class DMoETransformerLM:
             return _layer_slice(params["layers"], i)
         return params["layers"][i]
 
-    def _layer(self, lp, x, layer_idx, token_mask=None):
+    def _attention(self, lp, h, replicated: bool = False) -> torch.Tensor:
+        """Causal self-attention of the normed [B,S,d] ``h``: the dense
+        core, or on a ``seq`` axis the ring between the same projections
+        (the JAX ``_ring_attention``)."""
+        if self._ring_local is None:
+            return causal_attention(lp, h, self.cfg.n_heads,
+                                    impl=self.cfg.attn_impl)
+        q, k, v = qkv_projections(lp, h, self.cfg.n_heads)
+        ring = self._ring_global if replicated else self._ring_local
+        return output_projection(lp, ring(q, k, v))
+
+    def _moe(self, p, h, layer_idx, token_mask=None,
+             replicated: bool = False):
+        """The MoE FFN of the normed [B,S,d] ``h``: (output, aux).  On a
+        mesh the layer routes the tokens this rank's shard holds: its own
+        rows (the rows of its whole sequence with ``seq_parallel``), or
+        with ``replicated`` its share of the flattened tokens every rank
+        holds."""
+        b, s, d = h.shape
+        mask = None if token_mask is None else token_mask.reshape(b * s)
+        mesh = self.mesh
+        if mesh is not None and replicated:
+            axes = data_axes(mesh)
+            n = mesh.size(axes)
+            if (b * s) % n:
+                raise ValueError(f"token count {b * s} must divide across "
+                                 f"{n} shards")
+            flat = comm.shard_replicated(h.reshape(b * s, d), mesh, axes, 0)
+            if mask is not None:
+                mask = mask.reshape(n, -1)[mesh.index(axes)]
+            y, aux = self.moe(p, flat, jitter_salt=layer_idx, token_mask=mask)
+            return comm.gather_replicated(y, mesh, axes, 0).reshape(
+                b, s, d), aux
+        if self._ring_local is not None:
+            # the MoE routes whole rows: gather the row's chunks over seq
+            whole = comm.all_gather(h, mesh, "seq", dim=1)
+            if token_mask is not None:
+                mask = comm.all_gather(token_mask.to(torch.uint8), mesh,
+                                       "seq", dim=1).reshape(-1).bool()
+            y, aux = self.moe(p, whole.reshape(-1, d), jitter_salt=layer_idx,
+                              token_mask=mask)
+            i = mesh.index("seq")
+            return y.reshape(b, -1, d)[:, i * s: (i + 1) * s], aux
+        # the layer index salts the router jitter: each layer draws its
+        # own noise, and remat's recompute draws the forward's
+        y, aux = self.moe(p, h.reshape(b * s, d), jitter_salt=layer_idx,
+                          token_mask=mask)
+        return y.reshape(b, s, d), aux
+
+    def _layer(self, lp, x, layer_idx, token_mask=None, replicated=False):
         # profiler ranges (PROFILE_RANGE): profile_training.py attributes
         # device time to them
         with record_function(f"{PROFILE_RANGE}layer{layer_idx}/attention"):
-            x = x + causal_attention(
-                lp, layer_norm(lp["ln1"], x), self.cfg.n_heads,
-                impl=self.cfg.attn_impl,
-            )
-        b, s, d = x.shape
+            x = x + self._attention(lp, layer_norm(lp["ln1"], x), replicated)
         with record_function(f"{PROFILE_RANGE}layer{layer_idx}/moe"):
-            moe_in = layer_norm(lp["ln2"], x).reshape(b * s, d)
-            # the layer index salts the router jitter: each layer draws its
-            # own noise, and remat's recompute draws the forward's
-            moe_out, aux = self.moe(
-                lp["moe"], moe_in, jitter_salt=layer_idx,
-                token_mask=(None if token_mask is None
-                            else token_mask.reshape(b * s)),
-            )
-        return x + moe_out.reshape(b, s, d), aux
+            moe_out, aux = self._moe(lp["moe"], layer_norm(lp["ln2"], x),
+                                     layer_idx, token_mask, replicated)
+        return x + moe_out, aux
 
     def _embed(self, params: Params, token_ids: torch.Tensor,
-               start: int = 0) -> torch.Tensor:
+               start: int = 0, positions=None) -> torch.Tensor:
         """Token plus position embeddings of [B, S] ids at positions
-        ``start ..``, in the compute dtype."""
+        ``start ..`` (or at the global ``positions`` of a rank's sequence
+        chunk), in the compute dtype."""
         dt = self.cfg.dtype
         s = token_ids.shape[1]
         # F.embedding: its backward sums repeated tokens in parallel
         x = F.embedding(token_ids.long(), params["embed"]).to(dt)
+        if positions is not None:
+            return x + params["pos"][torch.as_tensor(
+                positions, device=token_ids.device)][None].to(dt)
         return x + params["pos"][None, start: start + s].to(dt)
 
     def _hidden(
         self, params: Params, token_ids: torch.Tensor,
-        token_mask: torch.Tensor | None = None,
+        token_mask: torch.Tensor | None = None, replicated: bool = False,
     ) -> tuple[torch.Tensor, dict]:
         """token_ids [B, S] → final-LN hidden states [B, S, d]; aux scalars
         averaged over layers.  ``token_mask`` [B, S] bool: False marks
-        padding that must not take part in MoE routing."""
-        x = self._embed(params, token_ids)
+        padding that must not take part in MoE routing.  On a mesh see
+        :meth:`apply` for what ``token_ids`` holds."""
+        zig = self._zig is not None and replicated
+        if self._layout is not None and not replicated:
+            want = len(self.local_positions())
+            if token_ids.shape[1] != want:
+                raise ValueError(
+                    f"the sequence layout was built for seq_len "
+                    f"{self.cfg.seq_len} ({want} columns a rank), got "
+                    f"{token_ids.shape[1]} columns")
+            x = self._embed(params, token_ids,
+                            positions=self.local_positions())
+        else:
+            x = self._embed(params, token_ids)
+        if zig:
+            if token_ids.shape[1] != len(self._zig):
+                raise ValueError(
+                    f"zigzag layout was built for seq_len {len(self._zig)}, "
+                    f"got {token_ids.shape[1]} -- the pre-permuted ring would "
+                    "silently misattend on other lengths")
+            # the zigzag layout for the whole layer stack: attention takes
+            # it as it is, the MoE and norms are per token
+            x = x[:, self._zig]
+            if token_mask is not None:
+                token_mask = token_mask[:, self._zig]
         aux_total = None
         for i in range(self.cfg.n_layers):
             lp = self._layer_params(params, i)
@@ -264,12 +445,14 @@ class DMoETransformerLM:
                     context_fn=functools.partial(
                         create_selective_checkpoint_contexts, _save_dots))
                 x, aux = checkpoint(self._layer, lp, x, i, token_mask,
-                                    use_reentrant=False, **extra)
+                                    replicated, use_reentrant=False, **extra)
             else:
-                x, aux = self._layer(lp, x, i, token_mask)
+                x, aux = self._layer(lp, x, i, token_mask, replicated)
             aux_total = aux if aux_total is None else {
                 key: aux_total[key] + aux[key] for key in aux_total
             }
+        if zig:
+            x = x[:, self._zig_inv]
         x = layer_norm(params["ln_f"], x)
         return x, {key: val / self.cfg.n_layers for key, val in aux_total.items()}
 
@@ -288,20 +471,32 @@ class DMoETransformerLM:
 
     def apply(
         self, params: Params, token_ids: torch.Tensor,
-        token_mask: torch.Tensor | None = None,
+        token_mask: torch.Tensor | None = None, replicated: bool = False,
     ) -> tuple[torch.Tensor, dict]:
-        """token_ids [B, S] → logits [B, S, V] (f32); aux dict of scalars."""
-        x, aux_mean = self._hidden(params, token_ids, token_mask)
+        """token_ids [B, S] → logits [B, S, V] (f32); aux dict of scalars.
+
+        On a mesh ``token_ids`` is this rank's part of the batch
+        (:meth:`local_batch`) and so are the logits; with ``replicated``
+        every rank passes the whole batch and gets the whole logits (the
+        trunk runs on every row alike, the MoE on the rank's share of the
+        flattened tokens, any row count whose tokens divide over the data
+        shards), as ``generate`` uses it."""
+        x, aux_mean = self._hidden(params, token_ids, token_mask, replicated)
         return self._logits(x, self._head(params)), aux_mean
 
     # ---- loss / train step ----
 
     def _fused_ce_or_none(self, head, flat_x, flat_t, n):
-        """Mean CE through the fused kernels (``ops/fused_ce.py``) when
-        ``ce_impl="fused"`` and their preconditions hold, else None and the
-        caller runs the chunked CE (never a full [n, V] logits buffer).
-        One device: the JAX package's single-device branch."""
+        """This rank's share of the mean CE through the fused kernels
+        (``ops/fused_ce.py``) when ``ce_impl="fused"`` and their
+        preconditions hold on the local shapes, else None and the caller
+        runs the chunked CE (never a full [n, V] logits buffer).  ``n`` is
+        the global token count.  On a mesh each rank runs the kernels on
+        its own rows, as the JAX ``shard_map`` branch does; under a
+        ``seq`` axis the chunked CE runs (the JAX fallback)."""
         if self.cfg.ce_impl != "fused":
+            return None
+        if self._layout is not None:
             return None
         bn, bv = self.cfg.ce_block_n, self.cfg.ce_block_v
         if _check(flat_x, head, flat_t, bn, bv) is not None:
@@ -326,36 +521,69 @@ class DMoETransformerLM:
         checkpointed chunk.  ``ce_impl="fused"`` keeps logits out of
         memory altogether when the kernels' preconditions hold."""
         x, aux = self._hidden(params, token_ids)
+        n_ranks = 1 if self.mesh is None else self.mesh.size(
+            token_axes(self.mesh))
         with record_function(f"{PROFILE_RANGE}loss"):
             head = self._head(params)
-            n = x.shape[0] * x.shape[1]
-            flat_x = x.reshape(n, x.shape[-1])
-            flat_t = targets.reshape(n)
+            n_local = x.shape[0] * x.shape[1]
+            n = n_local * n_ranks  # the global token count
+            flat_x = x.reshape(n_local, x.shape[-1])
+            flat_t = targets.reshape(n_local)
 
             ce = self._fused_ce_or_none(head, flat_x, flat_t, n)
             if ce is None:
-                chunk = min(self.cfg.ce_chunk, n)
+                chunk = min(self.cfg.ce_chunk, n_local)
                 ce_sum = torch.zeros((), dtype=torch.float32, device=x.device)
-                for start in range(0, n, chunk):
+                for start in range(0, n_local, chunk):
                     ce_sum = ce_sum + checkpoint(
                         self._chunk_ce_sum, flat_x[start: start + chunk],
                         head, flat_t[start: start + chunk],
                         use_reentrant=False,
                     )
                 ce = ce_sum / n
-        loss = (
+        if n_ranks == 1:
+            loss = (
+                ce
+                + self.cfg.aux_loss_weight * aux["aux_loss"]
+                + self.cfg.router_z_weight * aux["router_z_loss"]
+            )
+            return loss, {"ce": ce, **aux}
+        # each token rank adds its CE share and 1/n_ranks of the (global)
+        # router losses; the psum's value is the global loss and its
+        # backward leaves each rank its own share's gradient
+        axes = token_axes(self.mesh)
+        share = (
             ce
-            + self.cfg.aux_loss_weight * aux["aux_loss"]
-            + self.cfg.router_z_weight * aux["router_z_loss"]
+            + self.cfg.aux_loss_weight * aux["aux_loss"] / n_ranks
+            + self.cfg.router_z_weight * aux["router_z_loss"] / n_ranks
         )
-        return loss, {"ce": ce, **aux}
+        loss = comm.psum(share, self.mesh, axes)
+        return loss, {"ce": comm.psum(ce.detach(), self.mesh, axes), **aux}
+
+    def reduce_grads(self, grads: Params, params: Params) -> Params:
+        """Each rank's gradient shares summed in place over the token axes
+        that do not split the leaf (module docstring); returns ``grads``.
+        One collective per set of axes and dtype."""
+        if self.mesh is None or self.mesh.world_size == 1:
+            return grads
+        by_axes: dict = {}
+        for g, spec in zip(tree_leaves(grads),
+                           tree_leaves(self.param_specs(params))):
+            axes = tuple(a for a in token_axes(self.mesh)
+                         if a not in spec_axes(spec))
+            by_axes.setdefault(axes, []).append(g)
+        for axes, leaves in by_axes.items():
+            comm.all_reduce_tensors_(leaves, self.mesh, axes)
+        return grads
 
     def value_and_grad(self, params: Params, token_ids: torch.Tensor,
-                       targets: torch.Tensor):
+                       targets: torch.Tensor, reduce: bool = True):
         """``((loss, metrics), grads)`` of :meth:`loss_fn`, with ``grads`` a
         tree shaped like ``params`` (zeros for an unused leaf), as
         ``jax.value_and_grad(loss_fn, has_aux=True)`` gives them.  The
-        parameters themselves are not marked as requiring gradients."""
+        parameters themselves are not marked as requiring gradients.  On a
+        mesh the rank's gradient shares are summed over the mesh
+        (:meth:`reduce_grads`) unless ``reduce=False``."""
         with torch.enable_grad():
             live = tree_map(lambda t: t.detach().requires_grad_(True), params)
             loss, metrics = self.loss_fn(live, token_ids, targets)
@@ -365,7 +593,10 @@ class DMoETransformerLM:
                     materialize_grads=True,
                 )
         metrics = {key: val.detach() for key, val in metrics.items()}
-        return (loss.detach(), metrics), tree_unflatten(params, grads)
+        grads = tree_unflatten(params, grads)
+        if reduce:
+            self.reduce_grads(grads, params)
+        return (loss.detach(), metrics), grads
 
     def init_opt_state(self, optimizer, params: Params):
         """The optimizer's initial state for ``params`` (on their device)."""
@@ -384,7 +615,11 @@ class DMoETransformerLM:
         ``accum_steps > 1`` takes token_ids/targets of shape [accum, batch,
         seq], runs the microbatches one after another, sums their
         gradients in f32, applies ONE update with the mean, and averages
-        loss and metrics."""
+        loss and metrics.
+
+        On a mesh token_ids/targets are this rank's part of the batch
+        (:meth:`local_batch`; with accumulation, of each microbatch), and
+        ``optimizer`` is built over the mesh (its ``mesh`` and ``specs``)."""
         if accum_steps < 1:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
         apply_fn = getattr(optimizer, "apply_fused", None)
@@ -418,12 +653,14 @@ class DMoETransformerLM:
             lsum, msum = torch.zeros((), device=self.device), None
             for i in range(accum_steps):
                 (loss, metrics), grads = self.value_and_grad(
-                    params, token_ids[i], targets[i])
+                    params, token_ids[i], targets[i], reduce=False)
                 tree_map(lambda a, g: a.add_(g), gsum, grads)
                 del grads
                 lsum = lsum + loss
                 msum = metrics if msum is None else {
                     key: msum[key] + val for key, val in metrics.items()}
+            # the shares of every microbatch, summed over the mesh at once
+            self.reduce_grads(gsum, params)
             inv = 1.0 / accum_steps
             # stay f32: the fused optimizer consumes f32 grads directly; the
             # optax-contract path casts to the param dtype itself
@@ -458,7 +695,7 @@ class DMoETransformerLM:
             return self
         if self._decode_model is None:
             self._decode_model = DMoETransformerLM(
-                dataclasses.replace(cfg, **changed), self.device
+                dataclasses.replace(cfg, **changed), self.device, self.mesh
             )
         return self._decode_model
 
@@ -481,6 +718,9 @@ class DMoETransformerLM:
         masked out of MoE routing; ``use_cache=True`` prefills a KV cache
         on the prompt and then decodes one position per step, routing only
         the B live tokens (see the JAX docstring for when the two agree).
+        On a mesh every rank passes the whole prompt and gets the whole
+        output; the cached decoder needs B and B * P to divide over the
+        mesh's token shards, and no ``seq`` axis.
 
         Greedy decoding matches the JAX package token for token.
         ``temperature > 0`` samples under ``rng`` (required; a key of
@@ -508,6 +748,20 @@ class DMoETransformerLM:
             raise ValueError("temperature > 0 requires an rng key")
         if max_new_tokens == 0:
             return prompt_ids
+        if use_cache and self.mesh is not None:
+            if self.cfg.seq_parallel:
+                raise NotImplementedError(
+                    "use_cache=True does not compose with seq_parallel (the "
+                    "cache is not ring-sharded); decode on a mesh without a "
+                    "'seq' axis")
+            n_shards = self.mesh.size(data_axes(self.mesh))
+            if b % n_shards or (b * p) % n_shards:
+                raise ValueError(
+                    f"use_cache=True routes B={b} rows per decode step and "
+                    f"B*P={b * p} in prefill, which must divide the mesh's "
+                    f"{n_shards} token shards -- grow the batch or decode "
+                    "without the cache (the re-forward path routes the "
+                    "whole buffer and is immune)")
         model = self.decode_model()
         decode = model._generate_cached if use_cache else model._generate_full
         return decode(
@@ -540,7 +794,8 @@ class DMoETransformerLM:
             # positions <= t hold real tokens; the rest must not compete
             # for expert capacity
             valid = (positions[None, :] <= t).expand(b, s)
-            logits, _ = self.apply(params, buf, token_mask=valid)
+            logits, _ = self.apply(params, buf, token_mask=valid,
+                                   replicated=True)
             nxt, rng = self._sample(logits[:, t], temperature, rng)
             buf[:, t + 1] = nxt.to(buf.dtype)
         return buf[:, : p + max_new_tokens]
@@ -566,9 +821,9 @@ class DMoETransformerLM:
             x = x + output_projection(
                 lp, attention_core(q, k, v, cfg.attn_impl)
             )
-            moe_in = layer_norm(lp["ln2"], x).reshape(b * p, cfg.d_model)
-            moe_out, _ = self.moe(lp["moe"], moe_in, jitter_salt=i)
-            x = x + moe_out.reshape(b, p, cfg.d_model)
+            moe_out, _ = self._moe(lp["moe"], layer_norm(lp["ln2"], x), i,
+                                   replicated=True)
+            x = x + moe_out
             kc = torch.zeros(
                 (b, s_cache, cfg.n_heads, hd), dtype=k.dtype, device=self.device
             )
@@ -595,9 +850,9 @@ class DMoETransformerLM:
                 x = x + one_query_attention(
                     lp, q, k_caches[i], v_caches[i], t
                 )
-                moe_in = layer_norm(lp["ln2"], x).reshape(b, cfg.d_model)
-                moe_out, _ = self.moe(lp["moe"], moe_in, jitter_salt=i)
-                x = x + moe_out.reshape(b, 1, cfg.d_model)
+                moe_out, _ = self._moe(lp["moe"], layer_norm(lp["ln2"], x),
+                                       i, replicated=True)
+                x = x + moe_out
             x = layer_norm(params["ln_f"], x)
             tok, rng = self._sample(
                 self._logits(x, head)[:, 0], temperature, rng

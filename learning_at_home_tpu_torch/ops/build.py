@@ -5,12 +5,18 @@ It is compiled at first use for ``sm_90a`` into ``build/kernels/`` at the
 root of the checkout (listed in ``.gitignore``), under a name keyed by a
 hash of the sources and flags, so an edited source is rebuilt and an
 unchanged one is reused.  :func:`build_all` starts one ``nvcc`` per
-library, all at once, and waits for them together.
+library, all at once, and waits for them together.  Processes that build
+at once (the ranks of a job on one host) take turns on a file lock in the
+build directory: the first compiles, the others then find its libraries;
+each library lands by an atomic rename, so a reader never sees half of
+one.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -67,10 +73,27 @@ def build_all(names=None) -> None:
     failed compile, with the compiler's output."""
     names = list(LIBRARIES if names is None else names)
     todo = [(n, _library_path(n)) for n in names]
-    todo = [(n, p) for n, p in todo if not p.exists()]
-    if not todo:
+    if all(p.exists() for _, p in todo):
         return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with _build_lock():
+        _build([(n, p) for n, p in todo if not p.exists()])
+
+
+@contextlib.contextmanager
+def _build_lock():
+    """The build directory's lock, held while this process compiles."""
+    with open(BUILD_DIR / ".build.lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def _build(todo) -> None:
+    if not todo:
+        return
     nvcc = _nvcc()
     procs = []
     for name, out in todo:

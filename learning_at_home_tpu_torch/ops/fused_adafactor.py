@@ -13,6 +13,16 @@ parameter add into the same pass and updates the parameters in place
 under ``torch.no_grad()`` (the counterpart of JAX's buffer donation: no
 second parameter tree is allocated).  Plain tensor code: the JAX module is
 not a Pallas kernel, so there is no kernel here.
+
+On a mesh (``mesh`` and ``specs``, a tree like the params of each leaf's
+``parallel.mesh.P``) a rank updates its slices and takes every statistic
+over the whole leaf, as the JAX optimizer under GSPMD does: the factored
+second moments of a split leaf (``v_row``/``v_col`` are kept whole on
+every rank, the JAX rule that replicates reduced-rank state; for the
+expert stacks one of them is a mean across experts), the block-RMS clip
+and the parameter-scale RMS, each a sum over the rank's slice all-reduced
+over the axes that split the leaf.  The unfactored ``v`` is a slice, like
+its param.
 """
 
 from __future__ import annotations
@@ -22,6 +32,7 @@ from typing import Any, Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from learning_at_home_tpu_torch.parallel.mesh import LeafShard
 from learning_at_home_tpu_torch.tree import tree_leaves, tree_map
 
 NO_PARAMS_MSG = (
@@ -64,14 +75,29 @@ def _factored_dims(shape, factored: bool,
     return int(sorted_dims[-2]), int(sorted_dims[-1])
 
 
-def state_shapes(shape, factored: bool = True, min_dim: int = 128):
-    """(v_row, v_col, v) shapes of one leaf of ``shape``."""
+def state_shapes(shape, factored: bool = True, min_dim: int = 128,
+                 local_shape=None):
+    """(v_row, v_col, v) shapes of one leaf of global ``shape``; an
+    unfactored ``v`` takes the rank's ``local_shape`` (default ``shape``)."""
     shape = tuple(shape)
     dims = _factored_dims(shape, factored, min_dim)
     if dims is None:
-        return (1,), (1,), shape
+        return (1,), (1,), tuple(shape if local_shape is None else local_shape)
     d1, d0 = dims
     return (tuple(np.delete(shape, d0)), tuple(np.delete(shape, d1)), (1,))
+
+
+def leaf_shards(params, mesh, specs):
+    """A tree like ``params`` of each leaf's ``LeafShard`` (None for a leaf
+    held whole, and everywhere without a mesh)."""
+    if mesh is None:
+        return tree_map(lambda p: None, params)
+    return tree_map(lambda p, spec: LeafShard.of(mesh, spec, p.shape),
+                    params, specs)
+
+
+def global_shape_of(p, shard) -> tuple:
+    return tuple(p.shape) if shard is None else tuple(shard.shape)
 
 
 def fused_adafactor(
@@ -84,18 +110,22 @@ def fused_adafactor(
     weight_decay_rate: Optional[float] = None,
     eps: float = 1e-30,
     factored: bool = True,
+    mesh=None,
+    specs=None,
 ) -> FusedOptimizer:
-    """Adafactor with the JAX package's defaults and update rule."""
+    """Adafactor with the JAX package's defaults and update rule; over a
+    mesh with ``mesh`` and ``specs`` (module docstring)."""
 
     def init_fn(params):
         def zeros(p, shape):
             return torch.zeros(shape, dtype=p.dtype, device=p.device)
 
-        def leaf(p):
-            shapes = state_shapes(p.shape, factored, min_dim_size_to_factor)
+        def leaf(p, shard):
+            shapes = state_shapes(global_shape_of(p, shard), factored,
+                                  min_dim_size_to_factor, p.shape)
             return tuple(zeros(p, s) for s in shapes)
 
-        trip = tree_map(leaf, params)
+        trip = tree_map(leaf, params, leaf_shards(params, mesh, specs))
         device = tree_leaves(params)[0].device
         return FusedAdafactorState(
             count=torch.zeros([], dtype=torch.int32, device=device),
@@ -104,19 +134,33 @@ def fused_adafactor(
             v=tree_map(lambda _, t: t[2], params, trip),
         )
 
-    def _leaf(g, vr, vc, v, p, decay_t):
+    def _leaf(g, vr, vc, v, p, decay_t, shard=None):
         """One leaf: (f32 update u, new v_row, new v_col, new v)."""
         g32 = g.float()
         g_sqr = g32 * g32 + eps
-        dims = _factored_dims(tuple(p.shape), factored, min_dim_size_to_factor)
+        shape = global_shape_of(p, shard)
+        dims = _factored_dims(shape, factored, min_dim_size_to_factor)
+
+        def mean(x, dim=None):
+            """x's mean over ``dim`` (None: the whole leaf) of the
+            global leaf."""
+            if shard is None:
+                return x.mean() if dim is None else x.mean(dim=dim)
+            if dim is None:
+                return shard.total(x.sum()) / shard.numel()
+            return shard.stat(x.sum(dim=dim), dim) / shape[dim]
+
         if dims is not None:
             d1, d0 = dims
-            new_vr32 = decay_t * vr.float() + (1.0 - decay_t) * g_sqr.mean(dim=d0)
-            new_vc32 = decay_t * vc.float() + (1.0 - decay_t) * g_sqr.mean(dim=d1)
+            new_vr32 = decay_t * vr.float() + (1.0 - decay_t) * mean(g_sqr, d0)
+            new_vc32 = decay_t * vc.float() + (1.0 - decay_t) * mean(g_sqr, d1)
             reduced_d1 = d1 - 1 if d1 > d0 else d1
             row_mean = new_vr32.mean(dim=reduced_d1, keepdim=True)
             row_factor = (new_vr32 / row_mean) ** -0.5
             col_factor = new_vc32 ** -0.5
+            if shard is not None:  # the whole stats, this rank's slices
+                row_factor = shard.local(row_factor, d0)
+                col_factor = shard.local(col_factor, d1)
             u = g32 * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
             new_vr, new_vc, new_v = new_vr32.to(p.dtype), new_vc32.to(p.dtype), v
         else:
@@ -125,13 +169,13 @@ def fused_adafactor(
             new_vr, new_vc, new_v = vr, vc, new_v32.to(p.dtype)
         if clipping_threshold is not None:
             clip_denom = torch.clamp(
-                torch.sqrt(torch.mean(u * u)) / clipping_threshold, min=1.0)
+                torch.sqrt(mean(u * u)) / clipping_threshold, min=1.0)
             u = u / clip_denom
         scale = torch.tensor(learning_rate, dtype=torch.float32,
                              device=u.device)
         if multiply_by_parameter_scale:
             p32 = p.float()
-            p_rms = torch.sqrt(torch.mean(p32 * p32))
+            p_rms = torch.sqrt(mean(p32 * p32))
             scale = scale * torch.clamp(p_rms, min=1e-3)
         u = u * scale
         if weight_decay_rate is not None:
@@ -145,8 +189,8 @@ def fused_adafactor(
         t = (state.count - decay_offset + 1).float()
         decay_t = 1.0 - t ** (-decay_rate)
 
-        def leaf(g, vr, vc, v, p):
-            u, new_vr, new_vc, new_v = _leaf(g, vr, vc, v, p, decay_t)
+        def leaf(g, vr, vc, v, p, shard):
+            u, new_vr, new_vc, new_v = _leaf(g, vr, vc, v, p, decay_t, shard)
             if apply:  # p - u in f32, written back in place
                 p.copy_((p.float() - u).to(p.dtype))
                 first = p
@@ -154,7 +198,8 @@ def fused_adafactor(
                 first = (-u).to(p.dtype)
             return first, new_vr, new_vc, new_v
 
-        out = tree_map(leaf, grads, state.v_row, state.v_col, state.v, params)
+        out = tree_map(leaf, grads, state.v_row, state.v_col, state.v, params,
+                       leaf_shards(params, mesh, specs))
         new_state = FusedAdafactorState(
             count=safe_increment(state.count),
             v_row=tree_map(lambda _, o: o[1], params, out),

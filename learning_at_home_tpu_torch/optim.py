@@ -37,6 +37,8 @@ import torch
 from learning_at_home_tpu_torch.ops.fused_adafactor import (
     NO_PARAMS_MSG,
     _factored_dims,
+    global_shape_of,
+    leaf_shards,
     safe_increment,
     state_shapes,
 )
@@ -204,21 +206,28 @@ def _xla_cpu_sum(x: torch.Tensor, dims) -> torch.Tensor:
     return _sequential_sum(x.reshape(*x.shape[:k], -1))
 
 
-def _mean(x, dim=None, keepdim: bool = False):
+def _mean(x, dim=None, keepdim: bool = False, shard=None):
     """``jnp.mean``: summed in f32 (a bf16 input upcast), times the f32
     reciprocal of the count (XLA's rewrite of the division by a
     constant), cast back to the input's dtype.  On the CPU the sum
     follows XLA:CPU's order (:func:`_xla_cpu_sum`); on the card there is
-    no XLA order to follow, and torch's f32 sum is used."""
+    no XLA order to follow, and torch's f32 sum is used.  With ``shard``
+    (a ``LeafShard``) ``x`` is a rank's slice and the mean is the whole
+    leaf's: the slice's sum all-reduced over the leaf's axes."""
     dims = list(range(x.dim())) if dim is None else [dim % x.dim()]
     x32 = x.float()
     if x.device.type == "cpu" and x.dim():
         total = _xla_cpu_sum(x32, dims)
     else:
         total = x32.sum(dims)
+    shape = x.shape
+    if shard is not None:
+        shape = shard.shape
+        total = (shard.total(total) if dim is None
+                 else shard.stat(total, dims[0]))
     n = 1
     for d in dims:
-        n *= x.shape[d]
+        n *= shape[d]
     m = total * float(np.float32(1.0) / np.float32(n))
     if keepdim:
         for d in dims:
@@ -232,19 +241,24 @@ ADAFACTOR_DECAY_RATE = 0.8
 ADAFACTOR_EPS = 1e-30
 
 
-def adafactor(learning_rate: float) -> GradientTransformation:
+def adafactor(learning_rate: float, mesh=None,
+              specs=None) -> GradientTransformation:
     """``optax.adafactor(learning_rate)``: optax's defaults (clipping at
     1.0, the parameter-scale multiply, no momentum, no weight decay), its
     factoring rule (the two largest dims of a leaf of rank >= 2 whose
-    second largest is >= 128) and its state."""
+    second largest is >= 128) and its state.  Over a mesh (``mesh`` and
+    ``specs``) every mean spans the whole leaf and the factored
+    statistics are kept whole, as in ``ops/fused_adafactor.py``."""
 
     def init_fn(params):
         def zeros(p, shape):
             return torch.zeros(shape, dtype=p.dtype, device=p.device)
 
         trip = tree_map(
-            lambda p: tuple(zeros(p, s) for s in state_shapes(
-                p.shape, True, ADAFACTOR_MIN_DIM_SIZE_TO_FACTOR)), params)
+            lambda p, shard: tuple(zeros(p, s) for s in state_shapes(
+                global_shape_of(p, shard), True,
+                ADAFACTOR_MIN_DIM_SIZE_TO_FACTOR, p.shape)),
+            params, leaf_shards(params, mesh, specs))
         device = tree_leaves(params)[0].device
         first = FactoredState(
             count=torch.zeros([], dtype=torch.int32, device=device),
@@ -267,33 +281,36 @@ def adafactor(learning_rate: float) -> GradientTransformation:
             return (x.double() ** -0.5).float()
         return x ** _c(-0.5, x)
 
-    def scaled_by_factored_rms(g, vr, vc, v, p, decay_t):
+    def scaled_by_factored_rms(g, vr, vc, v, p, decay_t, shard):
         """Stage 1 for one leaf: (update, v_row, v_col, v)."""
         g_sqr = g * g + _c(ADAFACTOR_EPS, g)
-        dims = _factored_dims(tuple(p.shape), True,
+        dims = _factored_dims(global_shape_of(p, shard), True,
                               ADAFACTOR_MIN_DIM_SIZE_TO_FACTOR)
         if dims is None:
             new_v = ema(decay_t, v, g_sqr)
             return g * rsqrt(new_v), vr, vc, new_v
         d1, d0 = dims
-        new_vr = ema(decay_t, vr, _mean(g_sqr, d0))
-        new_vc = ema(decay_t, vc, _mean(g_sqr, d1))
+        new_vr = ema(decay_t, vr, _mean(g_sqr, d0, shard=shard))
+        new_vc = ema(decay_t, vc, _mean(g_sqr, d1, shard=shard))
         reduced_d1 = d1 - 1 if d1 > d0 else d1
         row_col_mean = _mean(new_vr, reduced_d1, keepdim=True)
         row_factor = rsqrt(new_vr / row_col_mean)
         col_factor = rsqrt(new_vc)
+        if shard is not None:  # the whole stats, this rank's slices
+            row_factor = shard.local(row_factor, d0)
+            col_factor = shard.local(col_factor, d1)
         u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
         return u, new_vr, new_vc, v
 
-    def clipped(u):
+    def clipped(u, shard):
         """``clip_by_block_rms(1.0)``."""
-        rms = torch.sqrt(_mean(u * u)) / _c(1.0, u)
+        rms = torch.sqrt(_mean(u * u, shard=shard)) / _c(1.0, u)
         return u / torch.maximum(_c(1.0, u), rms)
 
-    def by_param_rms(u, p):
+    def by_param_rms(u, p, shard):
         """``scale_by_param_block_rms()``: ``safe_root_mean_squares``
         of the param with min_rms 1e-3."""
-        rms = torch.sqrt(_mean(p * p))
+        rms = torch.sqrt(_mean(p * p, shard=shard))
         floor = _c(1e-3, rms)
         return u * torch.where(rms <= floor, floor, rms)
 
@@ -306,12 +323,15 @@ def adafactor(learning_rate: float) -> GradientTransformation:
         t = (fs.count + 1).float()
         decay_t = 1.0 - t ** -ADAFACTOR_DECAY_RATE
 
-        def leaf(g, vr, vc, v, p):
-            u, vr, vc, v = scaled_by_factored_rms(g, vr, vc, v, p, decay_t)
-            u = by_param_rms(_c(learning_rate, u) * clipped(u), p)
+        def leaf(g, vr, vc, v, p, shard):
+            u, vr, vc, v = scaled_by_factored_rms(g, vr, vc, v, p, decay_t,
+                                                  shard)
+            u = by_param_rms(_c(learning_rate, u) * clipped(u, shard), p,
+                             shard)
             return -u, vr, vc, v
 
-        out = tree_map(leaf, grads, fs.v_row, fs.v_col, fs.v, params)
+        out = tree_map(leaf, grads, fs.v_row, fs.v_col, fs.v, params,
+                       leaf_shards(params, mesh, specs))
         new = FactoredState(
             count=safe_increment(fs.count),
             v_row=tree_map(lambda _, o: o[1], params, out),

@@ -1,18 +1,34 @@
-"""ShardedMixtureOfExperts on one device: the pod-mode MoE FFN.
+"""ShardedMixtureOfExperts: the pod-mode MoE FFN, on one device or a mesh.
 
-The PyTorch counterpart of ``learning_at_home_tpu/parallel/sharded_moe.py``
-at an expert axis of size 1.  There the two ``lax.all_to_all`` exchanges
-of ``_local_forward`` are identities and the ``pmean``s of the aux
-scalars return their input, so this module is that function without them:
+The PyTorch counterpart of ``learning_at_home_tpu/parallel/sharded_moe.py``.
+Without a mesh (``mesh=None``) every expert lives on the one device and
+the layer is ``_local_forward`` without its collectives:
 
     x [n,d] ── gate ──▶ plan ── dispatch ──▶ [E,C,d]
       ── batched expert FFN ──▶ [E,C,d] ── combine ──▶ y [n,d]
 
+On a mesh (``parallel/mesh.py``) each rank is one ``shard_map`` shard: it
+routes ITS tokens (capacity from the local token count), and two
+all-to-alls over the ``expert`` axis carry them to the ranks that hold
+their experts and back (E global experts, e = E/ep local ones, C the
+capacity):
+
+    [E,C,d] ─ reshape [ep,e,C,d] ─ all_to_all ─▶ [ep,e,C,d] ─ regroup
+      [e,ep*C,d] ─ expert FFN ─▶ [e,ep*C,d] ─ regroup [ep,e,C,d]
+      ─ all_to_all ─▶ [E,C,d] ─ combine ─▶ y [n,d]
+
+A ``model`` axis splits each expert's FFN dim (w1 by columns, w2 by
+rows): the second product's partial sums meet in a ``psum`` over
+``model`` before ``b2`` is added, Megatron's conjugate pair (``comm.py``)
+making the first product's input cotangent whole again.  The aux scalars
+are ``pmean``'d over the data axes.  Router jitter draws the LOCAL
+``[n_local, E]`` shape, as the JAX layer's does inside ``shard_map``.
+
 Parameters keep the JAX names and layouts: ``gate [d,E]``, ``w1 [E,d,f]``,
-``b1 [E,f]``, ``w2 [E,f,d]``, ``b2 [E,d]``.  The expert FFN is a plain
-batched product (``torch.bmm``), as the JAX package leaves it to XLA.
-Routing is token-choice top-k (optionally with router jitter) or expert
-choice, as in the JAX layer.
+``b1 [E,f]``, ``w2 [E,f,d]``, ``b2 [E,d]``; on a mesh a rank holds its
+slices under :meth:`ShardedMixtureOfExperts.param_specs`.  The expert FFN
+is a plain batched product (``torch.bmm``), as the JAX package leaves it
+to XLA.
 """
 
 from __future__ import annotations
@@ -35,12 +51,30 @@ from learning_at_home_tpu_torch.ops.moe_dispatch import (
     top_k_gating,
     top_k_gating_indices,
 )
+from learning_at_home_tpu_torch.parallel import comm
+from learning_at_home_tpu_torch.parallel.mesh import P, data_axes, local_shard
 
 Params = dict[str, torch.Tensor]
 
 
+def expert_param_specs(tp: int = 1) -> dict[str, P]:
+    """Each MoE param's spec: the expert stacks split over ``expert``;
+    with a ``model`` axis of ``tp`` > 1 ranks, w1 by columns and w2 by
+    rows (b1 with w1); the gate whole."""
+    if tp > 1:
+        specs = {"w1": P("expert", None, "model"),  # column split
+                 "b1": P("expert", "model"),
+                 "w2": P("expert", "model", None),  # row split
+                 "b2": P("expert")}
+    else:
+        specs = {name: P("expert") for name in ("w1", "b1", "w2", "b2")}
+    specs["gate"] = P()
+    return specs
+
+
 class ShardedMixtureOfExperts:
-    """Top-k MoE FFN whose experts all live on one device."""
+    """Top-k MoE FFN; experts on one device, or sharded over a mesh's
+    ``expert`` axis (and their FFN dim over ``model``)."""
 
     def __init__(
         self,
@@ -54,6 +88,7 @@ class ShardedMixtureOfExperts:
         dispatch_impl: str = "auto",
         router_jitter: float = 0.0,
         gating: str = "topk",
+        mesh=None,
     ):
         if dispatch_impl not in ("auto", "gather", "onehot"):
             raise ValueError(
@@ -69,6 +104,21 @@ class ShardedMixtureOfExperts:
                 "router_jitter applies only to token-choice top-k gating; "
                 "pass router_jitter=0 with expert_choice"
             )
+        self.mesh = mesh
+        self.ep = 1 if mesh is None else mesh.size("expert")
+        self.tp = 1 if mesh is None else mesh.size("model")
+        if mesh is not None and "expert" not in mesh.axis_names:
+            raise ValueError("mesh must have an 'expert' axis")
+        if num_experts % self.ep:
+            raise ValueError(
+                f"num_experts={num_experts} must divide over expert axis "
+                f"size {self.ep}"
+            )
+        if (ffn_mult * hidden_dim) % self.tp:
+            raise ValueError(
+                f"ffn_dim={ffn_mult * hidden_dim} must divide over model "
+                f"axis size {self.tp}"
+            )
         self.hidden_dim = hidden_dim
         self.num_experts = num_experts
         self.k = k
@@ -80,21 +130,37 @@ class ShardedMixtureOfExperts:
         self.router_jitter = router_jitter
         self.gating = gating
 
-    def init_params(self, rng: torch.Tensor) -> Params:
+    def init_params(self, rng: torch.Tensor, shard: bool = True) -> Params:
         """Random parameters from the key ``rng`` on its device: the JAX
         package's values for the same key (``split(rng, 3)``: gate
         N(0, 1e-2²), lecun-normal experts over ``(e, d, f)``, zero
-        biases)."""
+        biases).  On a mesh the global leaves are drawn and each rank keeps
+        its slices (``shard=False`` keeps the global tree, for callers that
+        stack layers and slice the stack), so a slice equals the
+        single-device draw's bit for bit."""
         d, e, f = self.hidden_dim, self.num_experts, self.ffn_dim
         pdt, dev = self.param_dtype, rng.device
         kg, k1, k2 = jrandom.split(rng, 3)
-        return {
+        params = {
             "gate": normal(kg, (d, e), 1e-2, pdt),
             "w1": lecun_normal(k1, (e, d, f), pdt),
             "b1": torch.zeros((e, f), dtype=pdt, device=dev),
             "w2": lecun_normal(k2, (e, f, d), pdt),
             "b2": torch.zeros((e, d), dtype=pdt, device=dev),
         }
+        if self.mesh is None or not shard:
+            return params
+        specs = self.param_specs()
+        return {name: local_shard(p, specs[name], self.mesh).clone()
+                for name, p in params.items()}
+
+    def param_specs(self, stacked: bool = False) -> dict[str, P]:
+        """The spec of each param (:func:`expert_param_specs`);
+        ``stacked=True`` prepends a ``None`` dim for a stack of layers."""
+        specs = expert_param_specs(self.tp)
+        if stacked:
+            specs = {name: P(None, *spec) for name, spec in specs.items()}
+        return specs
 
     def __call__(
         self, params: Params, x: torch.Tensor, jitter_salt=0,
@@ -104,7 +170,8 @@ class ShardedMixtureOfExperts:
         integer 0-d tensor, e.g. the layer index) is folded into the
         router-jitter key so that each call site draws its own noise.
         ``token_mask`` [n] bool: False marks padding, which is routed
-        nowhere and gets zero output."""
+        nowhere and gets zero output.  On a mesh ``x`` is this rank's
+        tokens, and the capacity follows their count."""
         capacity = compute_capacity(
             x.shape[0], self.num_experts, self.k, self.capacity_factor
         )
@@ -143,13 +210,30 @@ class ShardedMixtureOfExperts:
             )
             xe = dispatch_tokens(x.to(compute), plan)  # [E, C, d]
 
+        mesh, ep, d = self.mesh, self.ep, self.hidden_dim
+        e_local = self.num_experts // ep
+        if ep > 1:
+            # slice j of the exchange = the tokens of expert-axis peer j
+            x_recv = comm.all_to_all(
+                xe.reshape(ep, e_local, capacity, d), mesh, "expert")
+            xe = x_recv.transpose(0, 1).reshape(e_local, ep * capacity, d)
+        if self.tp > 1:
+            # the column split's input: its cotangent sums over 'model'
+            xe = comm.psum_grad(xe, mesh, "model")
         w1 = params["w1"].to(compute)
         b1 = params["b1"].to(compute)
         w2 = params["w2"].to(compute)
         b2 = params["b2"].to(compute)
         # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(torch.bmm(xe, w1) + b1[:, None, :], approximate="tanh")
-        ye = torch.bmm(h, w2) + b2[:, None, :]
+        ye = torch.bmm(h, w2)
+        if self.tp > 1:
+            ye = comm.psum(ye, mesh, "model")
+        ye = ye + b2[:, None, :]
+        if ep > 1:
+            y_send = ye.reshape(e_local, ep, capacity, d).transpose(0, 1)
+            ye = comm.all_to_all(y_send.contiguous(), mesh, "expert").reshape(
+                self.num_experts, capacity, d)
 
         if self.gating == "expert_choice":
             y = combine_outputs_expert_choice(ye, plan, x.shape[0]).to(x.dtype)
@@ -177,4 +261,8 @@ class ShardedMixtureOfExperts:
             "router_z_loss": router_z,
             "dropped_fraction": dropped,
         }
+        if mesh is not None:
+            axes = data_axes(mesh)
+            aux = {key: comm.pmean(val, mesh, axes)
+                   for key, val in aux.items()}
         return y, aux

@@ -219,8 +219,11 @@ def test_auto_attention_rule(seq_len, device, want):
 
 @pytest.mark.parametrize("over", [dict(seq_parallel=True)])
 def test_unported_training_features_raise(over):
+    """Sequence parallelism is ported (``parallel/ring_attention.py``): a
+    model without a mesh that has a 'seq' axis refuses it, with the JAX
+    model's error."""
     cfg = DMoETransformerConfig(**TINY, dtype=torch.float32, **over)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="requires a 'seq' mesh axis"):
         DMoETransformerLM(cfg, device="cpu")
 
 
