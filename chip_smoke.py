@@ -250,18 +250,23 @@ Phases, each of which asserts (none catches its own failure):
                ``flagship-8k-train`` with phase 7's launches a step; (b)
                two gloo ranks sharing the card (``parallel/launch.RankGroup``,
                card tensors staged through pinned host buffers), mesh
-               {"expert": 2}: each rank's init slices bit for bit the
-               global draw's; at seq MESH_CHECK_SEQ with capacity factor
-               E/k (no drops), in f32, the loss and gradient slices
-               against one device (MESH_LOSS_RTOL, MESH_GRAD_RTOL); then
-               MESH_STEPS steps of ``flagship-8k-train`` (2 rows a rank):
-               finite falling losses and phase 7's launches on each rank;
-               (c) the same ranks on {"expert": 1, "seq": 2}: the zigzag
-               ring at seq 8192 in f32 against plain attention on one
-               device that routes its tokens in the zigzag order (the same
-               tokens drop), within MESH_SEQ_LOSS_RTOL and MESH_GRAD_RTOL.
-               Each rank resets and reads its own launch counters; the
-               kernels line sums (a)'s and (b)'s.
+               {"expert": 2}: each rank draws the global tree once and
+               its slices through the mesh model's init_params (bit for
+               bit the global tree's); at seq MESH_CHECK_SEQ with capacity
+               factor E/k (no drops) the loss and gradient slices against
+               one device in f32 (MESH_LOSS_RTOL, MESH_GRAD_RTOL), then in
+               the recipe's bf16 with the routing choices that differ
+               counted and replayed (phase 7's limits); then MESH_STEPS
+               steps of ``flagship-8k-train`` (2 rows a rank): finite
+               falling losses and phase 7's launches on each rank; (c) the
+               same ranks, before (b)'s steps, on {"expert": 1, "seq": 2}:
+               the zigzag ring at seq 8192 in f32 against plain attention
+               on one device that routes its tokens in the zigzag order
+               (the same tokens drop), within MESH_SEQ_LOSS_RTOL and
+               MESH_GRAD_RTOL.  Each rank resets and reads its own launch
+               counters; the kernels line sums (a)'s and (b)'s.  Phase 3
+               holds the kernels at (b)'s shapes (MESH_ATTN, MESH_CE,
+               MESH_CHECK_CE).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA card or
@@ -351,11 +356,7 @@ from learning_at_home_tpu_torch.ops import token_dispatch as td
 from learning_at_home_tpu_torch.ops.fused_adafactor import fused_adafactor
 from learning_at_home_tpu_torch.parallel import sharded_moe
 from learning_at_home_tpu_torch.parallel.launch import RankGroup
-from learning_at_home_tpu_torch.parallel.mesh import (
-    local_shard,
-    make_mesh,
-    spec_axes,
-)
+from learning_at_home_tpu_torch.parallel.mesh import local_shard, make_mesh
 from learning_at_home_tpu_torch.models.layers import make_expert
 from learning_at_home_tpu_torch.server import lifecycle
 from learning_at_home_tpu_torch.server.expert_backend import (
@@ -451,7 +452,7 @@ SWARM_LM_BATCH = 8
 SWARM_LM_LR = 3e-4
 SWARM_LM_SERVER = ["--optimizer", "adam", "--lr", str(SWARM_LM_LR),
                    "--max-batch-size", "4096", "--warmup"]
-SWARM_LM_TIMED, SWARM_LM_OVERLAP_STEPS = 3, 2
+SWARM_LM_TIMED, SWARM_LM_OVERLAP_STEPS = 5, 3
 # warm-up steps until the last 3 steps' times, and the experts they
 # called, each lie within 10 % of each other (at most 20 steps)
 SWARM_LM_SETTLE_STEPS, SWARM_LM_SETTLE, SWARM_LM_WARMUP_MAX = 3, 0.1, 20
@@ -547,6 +548,13 @@ TRAIN_ATTN = (TRAIN_8K_BATCH, FLAGSHIP_8K_TRAIN["seq_len"],
 CE_TRAIN, CE_8K_TRAIN = ((batch * cfg["seq_len"], cfg["d_model"],
                           cfg["vocab_size"]) for cfg, batch in
                          list(TRAINING.values())[:2])
+# phase 17 (b)'s shapes on each of its two ranks (half flagship-8k-train's
+# rows), and the CE's of its bf16 check at seq MESH_CHECK_SEQ: a rank's
+# row, the single device's two
+MESH_CHECK_SEQ = FLAGSHIP_TRAIN["seq_len"]
+MESH_ATTN = (TRAIN_8K_BATCH // 2, *TRAIN_ATTN[1:])
+MESH_CE = (CE_8K_TRAIN[0] // 2, *CE_8K_TRAIN[1:])
+MESH_CHECK_CE = [(rows * MESH_CHECK_SEQ, *CE_TRAIN[1:]) for rows in (1, 2)]
 # [n, d, E, C] of the MoE token dispatch on each path (C at capacity
 # factor 1.25, top-2): flagship-train (and its balanced run), the
 # flagship-8k prefill, flagship-8k-train
@@ -630,25 +638,26 @@ FLASH_LOSS_RTOL, ATTN_GRAD_COSINE, FLASH_GRAD_COSINE = 1e-3, 0.999, 0.9
 ATTN_GRAD_NORM_RTOL = 1e-2
 # phase 17 (mesh), the flagship at full width and depth on meshes of ranks:
 # (a) one NCCL rank, mesh {"data": 1, "expert": 1}, flagship-8k-train;
-# (b) two gloo ranks sharing the card, mesh {"expert": 2}: first a check
-# at seq MESH_CHECK_SEQ (flagship-train's), batch 2 (a row a rank) with
+# (b) two gloo ranks sharing the card, mesh {"expert": 2}: first checks at
+# seq MESH_CHECK_SEQ (flagship-train's), batch 2 (a row a rank) with
 # capacity factor E/k (no token drops; the one-hot dispatch's [n, E, C]
 # tensors grow with n squared there), then MESH_STEPS steps of
-# flagship-8k-train; (c) the
-# same ranks on {"expert": 1, "seq": 2}, the zigzag ring at seq 8192.
+# flagship-8k-train (MESH_ATTN, MESH_CE on each rank); (c) the same ranks
+# on {"expert": 1, "seq": 2}, the zigzag ring at seq 8192.
 MESH_STEPS = 3
-MESH_CHECK_SEQ = 256
 MESH_CALL_S = 420.0
-# (b)'s check (aux-loss weight 0: the balance loss is a mean of the shards'
-# own, in JAX too) computes in f32 with bf16 params and the chunked CE: in
-# bf16 the two sides' last-bit differences (a [1, S] and a [2, S] batch
-# take other cuBLAS kernels) tip near-ties of the bf16 gate logits, and an
-# expert whose handful of tokens changes moves its whole gradient (12 % of
-# a w1 leaf's norm on an H100).  In f32 the sides
-# differ by summation order (~1e-6 relative), so the loss within 1e-4
-# relative; gradients of bf16 params are rounded to bf16 (2^-9), a rank's
-# shares once more before their bf16 all-reduce: each leaf's error norm
-# within 2^-6 of its norm.
+# (b)'s f32 check (bf16 params, the chunked CE): the sides differ by f32
+# summation order (~1e-6 relative), so the loss within 1e-4 relative;
+# gradients of bf16 params are rounded to bf16 (2^-9), a rank's shares
+# once more before their bf16 all-reduce: each leaf's error norm within
+# 2^-6 of its norm.  (b)'s bf16 check (the recipe's compute and fused CE):
+# the two sides' last-bit differences tip near-ties of the bf16 gate
+# logits, and an expert whose handful of tokens changes moves its whole
+# gradient, as between flash and plain attention in phase 7; so phase 7's
+# limits, with the single device replaying the ranks' routing too: the
+# loss within FLASH_LOSS_RTOL, every leaf at cosine >= FLASH_GRAD_COSINE
+# with each side's own routing, and with one routing every leaf at cosine
+# >= ATTN_GRAD_COSINE with its norm within ATTN_GRAD_NORM_RTOL.
 MESH_LOSS_RTOL, MESH_GRAD_RTOL = 1e-4, 2.0 ** -6
 # (c)'s check computes in f32 (bf16 params): the zigzag ring and plain
 # attention differ by f32 summation order only (~1e-6 relative), so the
@@ -2781,13 +2790,6 @@ def mesh_batch(cfg, batch: int, seed: int, device):
     return seq[:, :-1].contiguous(), seq[:, 1:].contiguous()
 
 
-def _timed(fn, device) -> tuple[object, float]:
-    if torch.device(device).type == "cuda":
-        return timed(fn)
-    t0 = time.perf_counter()
-    return fn(), time.perf_counter() - t0
-
-
 def mesh_train(model, params, ids, tgt) -> dict:
     """flagship-8k-train's recipe on a mesh rank: a warm-up step, then
     MESH_STEPS steps with the counters reset just before them; the losses,
@@ -2798,17 +2800,15 @@ def mesh_train(model, params, ids, tgt) -> dict:
     state = model.init_opt_state(optimizer, params)
     step = model.make_train_step(optimizer)
     ids, tgt = model.local_batch(ids), model.local_batch(tgt)
-    cuda = model.device.type == "cuda"
-    (params, state, loss0, _), warm_s = _timed(
-        lambda: step(params, state, ids, tgt), model.device)
+    (params, state, loss0, _), warm_s = timed(
+        lambda: step(params, state, ids, tgt))
     _note(f"warm-up step {warm_s:.2f} s, loss {float(loss0):.5f}")
-    if cuda:
-        torch.cuda.reset_peak_memory_stats()
+    torch.cuda.reset_peak_memory_stats()
     reset_counts(counters)
     losses, step_ms = [], []
     for _ in range(MESH_STEPS):
-        (params, state, loss, metrics), dt = _timed(
-            lambda: step(params, state, ids, tgt), model.device)
+        (params, state, loss, metrics), dt = timed(
+            lambda: step(params, state, ids, tgt))
         losses.append(float(loss))
         step_ms.append(dt * 1e3)
         _note(f"step {dt:.2f} s, loss {losses[-1]:.5f}")
@@ -2816,22 +2816,22 @@ def mesh_train(model, params, ids, tgt) -> dict:
     return {"loss0": float(loss0), "losses": losses, "step_ms": step_ms,
             "warm_ms": warm_s * 1e3, "launches": launches,
             "dropped": float(metrics["dropped_fraction"]),
-            "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else 0,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
             "rows": ids.shape[0]}
 
 
-def mesh_rank_nccl(config: dict, batch: int, device=None) -> dict:
+def mesh_rank_nccl() -> dict:
     """(a) on the one rank: the loss and every gradient leaf of the mesh
     {"data": 1, "expert": 1} model against the single-device model
     (``mesh=None``) on the same weights and batch, bit for bit; then the
-    recipe's steps.  ``device`` None: the rank's card."""
+    recipe's steps on the rank's card."""
     _rank_setup()
-    mesh = make_mesh({"data": 1, "expert": 1}, device=device)
-    cfg = DMoETransformerConfig(**config)
+    mesh = make_mesh({"data": 1, "expert": 1})
+    cfg = DMoETransformerConfig(**FLAGSHIP_8K_TRAIN)
     single = DMoETransformerLM(cfg, device=mesh.device)
     meshed = DMoETransformerLM(cfg, mesh=mesh)
     params = meshed.init_params(prng.PRNGKey(SEED))
-    ids, tgt = mesh_batch(cfg, batch, SEED + 2, mesh.device)
+    ids, tgt = mesh_batch(cfg, TRAIN_8K_BATCH, SEED + 2, mesh.device)
     (l_single, _), g_single = single.value_and_grad(params, ids, tgt)
     (l_mesh, _), g_mesh = meshed.value_and_grad(params, ids, tgt)
     differ = [n for n, a, b in zip(leaf_paths(g_single),
@@ -2881,112 +2881,182 @@ class RoutedInOrder:
         return getattr(self.moe, name)
 
 
-def mesh_check(axes: dict, cfg_mesh, cfg_single, batch: int,
-               device) -> dict:
-    """The mesh model's loss and gradients on this rank against the
-    single-device model's (``cfg_single``) on the same weights and batch:
-    the rank compares its own slices.  With a zigzag layout the single
-    device routes its tokens in the layout's order."""
-    mesh = make_mesh(axes, device=device)
-    single = DMoETransformerLM(cfg_single, device=device)
+def _global_grads_sliced(model, single, whole, ids, tgt):
+    """The single-device model's loss, metrics and gradient (kept as the
+    rank's slices of ``model``'s layout: a split leaf's slice is copied,
+    so the rest is freed) on the global tree ``whole``."""
+    (loss, metrics), grads = single.value_and_grad(whole, ids, tgt)
+    grads = tree_map(lambda g, s: s if s.shape == g.shape else s.clone(),
+                     grads, _slices(grads, model))
+    return loss, metrics, grads
+
+
+def mesh_check(mesh, cfg_mesh, cfg_single, whole, local, batch: int) -> dict:
+    """The mesh model's loss and gradients on this rank (its params
+    ``local``) against the single-device model's (``cfg_single``) on the
+    global tree ``whole`` and the same batch: the rank compares its own
+    slices.  With a zigzag layout the single device routes its tokens in
+    the layout's order."""
+    dev = mesh.device
+    single = DMoETransformerLM(cfg_single, device=dev)
     meshed = DMoETransformerLM(cfg_mesh, mesh=mesh)
     if meshed._zig is not None:
         s = cfg_single.seq_len
-        zig = torch.as_tensor(meshed._zig, device=device)
+        zig = torch.as_tensor(meshed._zig, device=dev)
         single.moe = RoutedInOrder(single.moe, torch.cat(
             [row * s + zig for row in range(batch)]))
-    params = single.init_params(prng.PRNGKey(SEED))
-    ids, tgt = mesh_batch(cfg_single, batch, SEED + 4, device)
-    _note(f"{axes}: the single-device model's value_and_grad")
-    (l_single, m_single), g_single = single.value_and_grad(params, ids, tgt)
-    init_same = None  # no leaf split: the rank holds the whole tree
-    if any(mesh.size(spec_axes(spec)) > 1
-           for spec in tree_leaves(meshed.param_specs(params))):
-        # keep the rank's slices only, then draw the mesh model's own
-        g_single = tree_map(torch.clone, _slices(g_single, meshed))
-        want = tree_map(torch.clone, _slices(params, meshed))
-        del params
-        if torch.device(device).type == "cuda":
-            torch.cuda.empty_cache()
-        params = meshed.init_params(prng.PRNGKey(SEED))
-        init_same = all(torch.equal(a, b) for a, b in zip(
-            tree_leaves(want), tree_leaves(params)))
-        del want
-    local = params
-    del params
-    _note(f"{axes}: the mesh model's value_and_grad")
-    t0 = time.perf_counter()
+    ids, tgt = mesh_batch(cfg_single, batch, SEED + 4, dev)
+    l_single, m_single, g_single = _global_grads_sliced(
+        meshed, single, whole, ids, tgt)
+    _note(f"{mesh.shape}: the single-device model's value_and_grad done")
     (l_mesh, m_mesh), g_mesh = meshed.value_and_grad(
         local, meshed.local_batch(ids), meshed.local_batch(tgt))
-    _note(f"{axes}: done in {time.perf_counter() - t0:.2f} s")
+    _note(f"{mesh.shape}: the mesh model's value_and_grad done")
     errors = _rel_errors(g_mesh, g_single)
     zero = [n for n, g in zip(leaf_paths(g_mesh), tree_leaves(g_mesh))
             if not bool(g.any())]
     return {"loss_single": float(l_single), "loss_mesh": float(l_mesh),
             "dropped": (float(m_single["dropped_fraction"]),
                         float(m_mesh["dropped_fraction"])),
-            "errors": errors, "init_same": init_same, "zero": zero}
+            "errors": errors, "zero": zero}
 
 
-def mesh_rank_expert(config: dict, batch: int, check_seq: int,
-                     device: str) -> dict:
-    """(b) on one of two gloo ranks sharing ``device``, mesh
-    {"expert": 2}."""
+def mesh_check_bf16(mesh, cfg, whole, local) -> dict:
+    """(b)'s check in the recipe's bf16 compute (its fused CE, K1-K3 on
+    each rank's row): the mesh model's gradients against the single
+    device's, first with each side routing by itself (the gate choices
+    that differ counted per layer), then with the single device replaying
+    the ranks' routing, gathered from both ranks."""
+    dev, n_layers = mesh.device, cfg.n_layers
+    single = DMoETransformerLM(cfg, device=dev)
+    meshed = DMoETransformerLM(cfg, mesh=mesh)
+    ids, tgt = mesh_batch(cfg, 2, SEED + 4, dev)
+    with routing_log() as (mesh_route, _):
+        (l_mesh, _), g_mesh = meshed.value_and_grad(
+            local, meshed.local_batch(ids), meshed.local_batch(tgt))
+    # rank r routes row r's tokens; the single device's rows in rank order
+    per_rank = [None] * dist.get_world_size()
+    dist.all_gather_object(per_rank, [i.cpu() for i in mesh_route])
+    route = [torch.cat(calls).to(dev) for calls in zip(*per_rank)]
+    _note("bf16: the mesh model's value_and_grad done")
+    with routing_log() as (own_route, _):
+        l_own, _, g_own = _global_grads_sliced(meshed, single, whole, ids,
+                                               tgt)
+    _note("bf16: the single device's own routing done")
+    moved = [int((a != b).sum())
+             for a, b in zip(route[:n_layers], own_route[:n_layers])]
+    own = (_rel_errors(g_mesh, g_own), grad_agreement(g_mesh, g_own))
+    del g_own
+    with routing_log(replay=route) as (replayed, differ):
+        l_pin, _, g_pin = _global_grads_sliced(meshed, single, whole, ids,
+                                               tgt)
+    assert len(replayed) == len(route), (len(replayed), len(route))
+    pinned = (_rel_errors(g_mesh, g_pin), grad_agreement(g_mesh, g_pin))
+    return {"loss_mesh": float(l_mesh), "loss_own": float(l_own),
+            "loss_pinned": float(l_pin), "moved": moved,
+            "differ": differ[:n_layers], "tokens": ids.numel() * cfg.k,
+            "own": own, "pinned": pinned}
+
+
+def mesh_rank_pair() -> dict:
+    """(b) and (c) on one of two gloo ranks sharing the card.  The rank
+    draws the global tree once (the single device's weights in every
+    check) and its {"expert": 2} slices through the mesh model's
+    init_params, which must equal the global tree's; the checks, then
+    (b)'s steps once the global tree is freed."""
     _rank_setup()
-    # the balance loss is the mean of the shards' (the JAX layer's pmean,
-    # not the whole batch's), so the check leaves it out: aux weight 0;
-    # f32 compute (module constants, MESH_GRAD_RTOL)
-    cfg = DMoETransformerConfig(**dict(
-        config, seq_len=check_seq, aux_loss_weight=0.0, dtype=torch.float32,
-        ce_impl="chunked",
-        capacity_factor=config["num_experts"] / config["k"]))
-    out = {"check": mesh_check({"expert": 2}, cfg, cfg, 2, device)}
-    if torch.device(device).type == "cuda":
-        torch.cuda.empty_cache()
-    mesh = make_mesh({"expert": 2}, device=device)
-    cfg = DMoETransformerConfig(**config)
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    cfg = DMoETransformerConfig(**FLAGSHIP_8K_TRAIN)
+    whole = DMoETransformerLM(cfg, device=dev).init_params(
+        prng.PRNGKey(SEED))
+    _note("the global tree drawn")
+    mesh = make_mesh({"expert": 2}, device=dev)
     model = DMoETransformerLM(cfg, mesh=mesh)
-    params = model.init_params(prng.PRNGKey(SEED))
-    ids, tgt = mesh_batch(cfg, batch, SEED + 2, device)
-    out["train"] = mesh_train(model, params, ids, tgt)
-    out["stage"] = mesh.stage
+    local = model.init_params(prng.PRNGKey(SEED))
+    out = {"stage": mesh.stage, "init_same": all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(_slices(whole, model)),
+                                          tree_leaves(local)))}
+    _note("the global tree and the rank's slices drawn")
+    # the checks at seq MESH_CHECK_SEQ: capacity factor E/k (no token
+    # drops), aux weight 0 (the balance loss is the mean of the shards',
+    # the JAX layer's pmean, not the whole batch's); the tree's pos rows
+    # past the sequence get no gradient on either side
+    check = dict(FLAGSHIP_8K_TRAIN, seq_len=MESH_CHECK_SEQ,
+                 aux_loss_weight=0.0, capacity_factor=cfg.num_experts / cfg.k)
+    f32 = DMoETransformerConfig(**dict(check, dtype=torch.float32,
+                                       ce_impl="chunked"))
+    out["f32"] = mesh_check(mesh, f32, f32, whole, local, 2)
+    out["bf16"] = mesh_check_bf16(mesh, DMoETransformerConfig(**check),
+                                  whole, local)
+    # (c): the CE takes the chunked path under a seq axis; the single
+    # device's too (the fused kernels take bf16 operands)
+    base = dict(FLAGSHIP_8K_TRAIN, dtype=torch.float32, ce_impl="chunked")
+    out["seq"] = mesh_check(
+        make_mesh({"expert": 1, "seq": 2}, device=dev),
+        DMoETransformerConfig(**dict(base, seq_parallel=True,
+                                     seq_layout="zigzag")),
+        DMoETransformerConfig(**dict(base, attn_impl="xla")), whole, whole, 1)
+    del whole
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    _note("checks done")
+    ids, tgt = mesh_batch(cfg, TRAIN_8K_BATCH, SEED + 2, dev)
+    out["train"] = mesh_train(model, local, ids, tgt)
+    t2 = time.perf_counter()
+    out["seconds"] = (t1 - t0, t2 - t1)
     return out
 
 
-def mesh_rank_seq(config: dict, device: str) -> dict:
-    """(c) on one of the two gloo ranks, mesh {"expert": 1, "seq": 2}: the
-    zigzag ring at the config's length, in f32, against plain attention on
-    one device."""
-    _rank_setup()
-    # the CE takes the chunked path under a seq axis; the single device's
-    # too (the fused kernels take bf16 operands)
-    base = dict(config, dtype=torch.float32, ce_impl="chunked")
-    cfg_mesh = DMoETransformerConfig(**dict(base, seq_parallel=True,
-                                            seq_layout="zigzag"))
-    cfg_single = DMoETransformerConfig(**dict(base, attn_impl="xla"))
-    return mesh_check({"expert": 1, "seq": 2}, cfg_mesh, cfg_single, 1,
-                      device)
+def _worst(errors: dict) -> tuple[str, float]:
+    return max(errors.items(), key=lambda kv: kv[1])
 
 
-def mesh_phase(card: str, config: dict = FLAGSHIP_8K_TRAIN,
-               batch: int = TRAIN_8K_BATCH, check_seq: int = MESH_CHECK_SEQ,
-               device: str = "cuda") -> dict:
-    """Phase 17; returns each arm's launches (summed over its ranks).
-    ``device="cpu"`` rehearses it on the CPU at a small ``config`` (gloo
-    in (a) too, the kernels' plain versions: no launches)."""
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / abs(b)
+
+
+def report_mesh_bf16(rank: int, chk: dict) -> None:
+    """(b)'s bf16 check on one rank: the routing choices that differ, and
+    the gradients with each side's own routing and with one routing."""
+    own_err, own_agree = chk["own"]
+    pin_err, pin_agree = chk["pinned"]
+    rel_own = _rel(chk["loss_mesh"], chk["loss_own"])
+    rel_pin = _rel(chk["loss_mesh"], chk["loss_pinned"])
+    lowest = min(own_agree.items(), key=lambda kv: kv[1][0])
+    print(f"(b) rank {rank}, bf16 at seq {MESH_CHECK_SEQ}: loss "
+          f"{chk['loss_mesh']:.6f} vs {chk['loss_own']:.6f} (rel "
+          f"{rel_own:.2e}), {chk['loss_pinned']:.6f} replaying the ranks' "
+          f"routing (rel {rel_pin:.2e}); routing choices (of "
+          f"{chk['tokens']} a layer) that differ, mesh vs one device, per "
+          f"layer: {chk['moved']}; the single device's own where it "
+          f"replays: {chk['differ']}")
+    print(f"(b) rank {rank}, bf16, own routing: worst leaf "
+          f"{_worst(own_err)[0]} {_worst(own_err)[1]:.2e}; lowest cosine "
+          f"{lowest[0]} {lowest[1][0]:.6f}")
+    print(f"(b) rank {rank}, bf16, one routing: worst leaf "
+          f"{_worst(pin_err)[0]} {_worst(pin_err)[1]:.2e}; lowest cosine "
+          + ", ".join(f"{n} {c:.6f} {d:.1e}" for n, (c, d) in sorted(
+              pin_agree.items(), key=lambda kv: kv[1][0])[:3]))
+    assert max(rel_own, rel_pin) <= FLASH_LOSS_RTOL, (rel_own, rel_pin)
+    for name, (cos, _) in own_agree.items():
+        assert cos >= FLASH_GRAD_COSINE, f"mesh and one device {name}: {cos}"
+    for name, (cos, dev) in pin_agree.items():
+        assert cos >= ATTN_GRAD_COSINE and dev <= ATTN_GRAD_NORM_RTOL, \
+            f"with one routing, mesh and one device {name}: {cos}, {dev}"
+
+
+def mesh_phase(card: str) -> dict:
+    """Phase 17; returns each arm's launches (summed over its ranks)."""
     t0 = time.perf_counter()
-    on_card = device == "cuda"
-    rank_device = "cuda:0" if on_card else "cpu"
-    if on_card:
-        gc.collect()
-        torch.cuda.empty_cache()
-        print(f"this process holds {torch.cuda.memory_allocated() / 1e9:.2f} "
-              "GB of the card while the ranks run")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"this process holds {torch.cuda.memory_allocated() / 1e9:.2f} "
+          "GB of the card while the ranks run")
+    seq = FLAGSHIP_8K_TRAIN["seq_len"]
     want = {"flash_attn_fwd": 8, "flash_attn_bwd_dkv": 4,
             "flash_attn_bwd_dq": 4, "fused_ce_fwd": 1, "fused_ce_dx": 1,
             "fused_ce_dhead": 1, "token_dispatch": 0}  # phase 7's a step
-    if not on_card:
-        want = dict.fromkeys(want, 0)
 
     def per_step(run):
         return {k: n / MESH_STEPS for k, n in run["launches"].items()}
@@ -2996,61 +3066,59 @@ def mesh_phase(card: str, config: dict = FLAGSHIP_8K_TRAIN,
         print(f"{label}: losses {[round(run['loss0'], 5)] + [round(x, 5) for x in run['losses']]}; "
               f"step ms {[round(x, 1) for x in run['step_ms']]} (median "
               f"{med:.1f}, warm-up {run['warm_ms']:.1f}); {run['rows']} rows "
-              f"x {config['seq_len']} a rank; dropped {run['dropped']:.4f}; peak "
+              f"x {seq} a rank; dropped {run['dropped']:.4f}; peak "
               f"{run['peak_gb']:.2f} GB; launches a step {per_step(run)}")
         assert all(math.isfinite(x) for x in run["losses"]), run["losses"]
         assert run["losses"][-1] < run["loss0"], "the loss did not fall"
         assert per_step(run) == want, (per_step(run), want)
 
-    with RankGroup(1, backend="nccl" if on_card else "gloo",
-                   timeout_s=MESH_CALL_S) as group:
-        a = group.run(mesh_rank_nccl, config, batch,
-                      None if on_card else "cpu")[0]
+    with RankGroup(1, backend="nccl", timeout_s=MESH_CALL_S) as group:
+        a = group.run(mesh_rank_nccl)[0]
     print(f"(a) {a['backend']} rank on {a['device']}, mesh data 1 x expert "
-          f"1 against mesh=None, flagship-8k-train batch {batch}: "
+          f"1 against mesh=None, flagship-8k-train batch {TRAIN_8K_BATCH}: "
           f"loss {a['loss']:.6f} bit for bit {a['same_loss']}; gradient "
           f"leaves that differ: {a['differ']}")
-    assert a["backend"] == ("nccl" if on_card else "gloo")
+    assert a["backend"] == "nccl"
     assert a["same_loss"] and not a["differ"], "mesh of one rank != mesh=None"
     report("(a) flagship-8k-train on the NCCL rank", a)
+    t1 = time.perf_counter()
     with RankGroup(2, backend="gloo", timeout_s=MESH_CALL_S) as group:
-        t1 = time.perf_counter()
-        b = group.run(mesh_rank_expert, config, batch, check_seq, rank_device)
-        tb = time.perf_counter() - t1
-        c = group.run(mesh_rank_seq, config, rank_device)
-        tc = time.perf_counter() - t1 - tb
-    for rank, out in enumerate(b):
-        chk = out["check"]
-        worst = max(chk["errors"].items(), key=lambda kv: kv[1])
-        rel = abs(chk["loss_mesh"] - chk["loss_single"]) / abs(chk["loss_single"])
+        pair = group.run(mesh_rank_pair)
+    for rank, out in enumerate(pair):
+        chk = out["f32"]
+        worst = _worst(chk["errors"])
+        rel = _rel(chk["loss_mesh"], chk["loss_single"])
         print(f"(b) rank {rank} (gloo, staged through the host: "
-              f"{out['stage']}), expert 2 against one device at seq "
-              f"{check_seq} in f32, capacity factor E/k, aux weight 0: loss "
+              f"{out['stage']}): init slices bit for bit {out['init_same']}; "
+              f"expert 2 against one device at seq {MESH_CHECK_SEQ} in f32, "
+              f"capacity factor E/k, aux weight 0: loss "
               f"{chk['loss_mesh']:.6f} vs {chk['loss_single']:.6f} (rel "
-              f"{rel:.2e}); dropped {chk['dropped']}; init slices bit for "
-              f"bit {chk['init_same']}; worst leaf {worst[0]} {worst[1]:.2e}")
-        assert chk["init_same"], "a rank's init slices != the global draw's"
+              f"{rel:.2e}); dropped {chk['dropped']}; worst leaf {worst[0]} "
+              f"{worst[1]:.2e}")
+        assert out["init_same"], "a rank's init slices != the global draw's"
         assert chk["dropped"] == (0.0, 0.0), chk["dropped"]
         assert not chk["zero"], chk["zero"]
         assert rel <= MESH_LOSS_RTOL, rel
         assert worst[1] <= MESH_GRAD_RTOL, worst
+        report_mesh_bf16(rank, out["bf16"])
         report(f"(b) rank {rank}, flagship-8k-train on expert 2", out["train"])
-    for rank, chk in enumerate(c):
-        worst = max(chk["errors"].items(), key=lambda kv: kv[1])
-        rel = abs(chk["loss_mesh"] - chk["loss_single"]) / abs(chk["loss_single"])
+        chk = out["seq"]
+        worst = _worst(chk["errors"])
+        rel = _rel(chk["loss_mesh"], chk["loss_single"])
         print(f"(c) rank {rank}, expert 1 x seq 2, the zigzag ring at seq "
-              f"{config['seq_len']} in f32 against plain attention on one "
-              f"device routing in the zigzag order: loss "
-              f"{chk['loss_mesh']:.6f} vs {chk['loss_single']:.6f} (rel "
-              f"{rel:.2e}); dropped {chk['dropped']}; worst leaf {worst[0]} "
-              f"{worst[1]:.2e}")
+              f"{seq} in f32 against plain attention on one device routing "
+              f"in the zigzag order: loss {chk['loss_mesh']:.6f} vs "
+              f"{chk['loss_single']:.6f} (rel {rel:.2e}); dropped "
+              f"{chk['dropped']}; worst leaf {worst[0]} {worst[1]:.2e}")
         # the same tokens dropped on both sides: the same routing
         assert chk["dropped"][0] == chk["dropped"][1], chk["dropped"]
         assert not chk["zero"], chk["zero"]
         assert rel <= MESH_SEQ_LOSS_RTOL, rel
         assert worst[1] <= MESH_GRAD_RTOL, worst
-    print(f"mesh phase: {time.perf_counter() - t0:.1f} s ((b) {tb:.1f} s, "
-          f"(c) {tc:.1f} s); {card}")
+    secs = [round(x, 1) for x in pair[0]["seconds"]]
+    print(f"mesh phase: {time.perf_counter() - t0:.1f} s ((a) {t1 - t0:.1f} "
+          f"s; the pair {time.perf_counter() - t1:.1f} s, rank 0's draws and "
+          f"checks, then its steps: {secs} s); {card}")
 
     def summed(runs):
         return {k: sum(r["launches"][k] for r in runs) for k in want}
@@ -3059,7 +3127,7 @@ def mesh_phase(card: str, config: dict = FLAGSHIP_8K_TRAIN,
         f"mesh (a) nccl data 1 x expert 1 ({MESH_STEPS} steps)":
             a["launches"],
         f"mesh (b) gloo expert 2, both ranks ({MESH_STEPS} steps)":
-            summed([o["train"] for o in b]),
+            summed([o["train"] for o in pair]),
         "mesh (c) gloo expert 1 x seq 2 (one value_and_grad, not counted)":
             dict.fromkeys(want, 0),
     }
@@ -3728,15 +3796,15 @@ FAMILIES = {"flash": ("flash_attn_fwd", "flash_attn_bwd"),
 def check_kernels(gen, results, family: str = "all") -> None:
     """Phase 3 (of one family's kernels)."""
     if family in ("all", "flash"):
-        for shape in [SERVE_ATTN, (1, 1000, 8, 64), (3, 70, 2, 64),
+        for shape in [SERVE_ATTN, MESH_ATTN, (1, 1000, 8, 64), (3, 70, 2, 64),
                       (1, 1, 1, 64), (1, 65, 2, 64), (1, 8193, 8, 64)]:
             check_flash(shape, gen, results)
-        for shape in [TRAIN_ATTN, (1, 8192, 8, 64), (1, 8193, 8, 64),
-                      (2, 4096, 8, 64), (1, 1000, 8, 64)]:
+        for shape in [TRAIN_ATTN, MESH_ATTN, (1, 8192, 8, 64),
+                      (1, 8193, 8, 64), (2, 4096, 8, 64), (1, 1000, 8, 64)]:
             check_flash_bwd(shape, gen, results)
     if family in ("all", "ce"):
-        for shape in [CE_TRAIN, CE_8K_TRAIN, (1024, 128, 2048),
-                      (384, 384, 4096), (1000, 256, 1088)]:
+        for shape in [CE_TRAIN, CE_8K_TRAIN, MESH_CE, *MESH_CHECK_CE,
+                      (1024, 128, 2048), (384, 384, 4096), (1000, 256, 1088)]:
             check_fused_ce(shape, gen, results)
     if family == "all":
         check_dispatch_ragged(gen, results)  # the path's plans: phase 10

@@ -21,11 +21,10 @@ transformer_swarm.py``; its experts live on the servers).
 
 On a mesh (``parallel/mesh.py``) :func:`params_from_jax` and
 :func:`opt_state_from_jax` take a ``mesh`` (and a ``rank``, for a rank
-other than the mesh's own, or axis sizes in place of a mesh) and return
-that rank's slices of the JAX global tree: the expert stacks split as
-``ShardedMixtureOfExperts.param_specs`` says, every other param whole; an
-optimizer state leaf takes its param's spec where it has the param's
-shape (``mesh.opt_state_shardings``' rule), else is whole.
+other than the mesh's own, or axis sizes in place of a mesh) and the
+port's config, and return that rank's slices of the JAX global tree: each
+param split as ``DMoETransformerLM.param_specs`` says, each optimizer
+state leaf as ``mesh.opt_state_shardings`` says.
 
 :func:`expert_from_jax` and :func:`expert_to_jax` carry one swarm
 expert's parameters (flax's ``{"params": ...}`` tree, ``models/layers.py``)
@@ -50,13 +49,13 @@ from learning_at_home_tpu_torch.optim import (
     FactoredState,
     ScaleByAdamState,
 )
+from learning_at_home_tpu_torch.models.transformer import DMoETransformerLM
 from learning_at_home_tpu_torch.parallel.mesh import (
-    P,
     Mesh,
     local_shard,
     mesh_layout,
+    opt_state_shardings,
 )
-from learning_at_home_tpu_torch.parallel.sharded_moe import expert_param_specs
 from learning_at_home_tpu_torch.tree import tree_map
 
 
@@ -133,7 +132,7 @@ def _to_tensor(arr, device: torch.device) -> torch.Tensor:
     return numpy_to_tensor(np.array(np.asarray(arr), copy=True), device)
 
 
-def _to_numpy(t: torch.Tensor, path: str = "") -> np.ndarray:
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return np.array(tensor_to_numpy(t), copy=True)
 
 
@@ -158,7 +157,7 @@ def _convert(tree, shapes, path: str, leaf_fn):
         raise ValueError(
             f"{path}: expected shape {shapes}, got {tuple(tree.shape)}"
         )
-    return leaf_fn(tree, path)
+    return leaf_fn(tree)
 
 
 def _layout(mesh, rank) -> Mesh | None:
@@ -174,35 +173,29 @@ def _layout(mesh, rank) -> Mesh | None:
     return mesh_layout(axes, rank)
 
 
-def _param_spec(path: str, shape, cfg, mesh: Mesh) -> P:
-    """The spec of the leaf at ``path`` (``/``-separated, a state's field
-    first where ``path`` is a state leaf's) when it has its param's shape,
-    else replicated."""
-    parts = [p for p in path.split("/") if p]
-    if "moe" not in parts:
-        return P()
-    name = parts[-1]
-    lead = (cfg.n_layers,) if cfg.stack_layers else ()
-    e, d, f = cfg.num_experts, cfg.d_model, 4 * cfg.d_model
-    full = {"gate": (d, e), "w1": (e, d, f), "b1": (e, f), "w2": (e, f, d),
-            "b2": (e, d)}[name]
-    if tuple(shape) != (*lead, *full):
-        return P()
-    spec = expert_param_specs(mesh.size("model"))[name]
-    return P(None, *spec) if cfg.stack_layers else spec
+def _rank_slices(tree, specs, layout: Mesh, device):
+    """The rank's slices (``layout``'s) of a tree of host arrays, each
+    leaf split by its spec in ``specs``, as tensors on ``device``."""
+    return tree_map(lambda arr, spec: _to_tensor(local_shard(arr, spec,
+                                                             layout), device),
+                    tree, specs)
 
 
-def _leaf_to_tensor(cfg, mesh: Mesh | None, device):
-    """The leaf function of a conversion to the port: numpy → the rank's
-    slice (with a mesh) → a tensor on ``device``."""
-    def fn(arr, path):
-        arr = np.asarray(arr)
-        if mesh is not None:
-            arr = local_shard(arr, _param_spec(path, arr.shape, cfg, mesh),
-                              mesh)
-        return _to_tensor(arr, device)
+def _meta_params(shapes):
+    """:func:`param_shapes`' tree with a meta tensor at each leaf: the
+    params' shapes without their memory."""
+    if isinstance(shapes, dict):
+        return {key: _meta_params(val) for key, val in shapes.items()}
+    if shapes and isinstance(shapes[0], dict):  # the tuple layout
+        return tuple(_meta_params(layer) for layer in shapes)
+    return torch.empty(shapes, device="meta")
 
-    return fn
+
+def _param_specs(params, cfg, layout: Mesh):
+    """The specs of ``params`` (the model's layout) on ``layout``: the
+    model's own (``DMoETransformerLM.param_specs``)."""
+    return DMoETransformerLM(cfg, device="cpu",
+                             mesh=layout).param_specs(params)
 
 
 def params_from_jax(tree, cfg, device=None, mesh=None, rank=None):
@@ -211,8 +204,12 @@ def params_from_jax(tree, cfg, device=None, mesh=None, rank=None):
     the JAX package's config; the tree must match its layout and shapes.
     With ``mesh`` the rank's slices (module docstring)."""
     dev = resolve_device(device)
-    return _convert(tree, param_shapes(cfg), "",
-                    _leaf_to_tensor(cfg, _layout(mesh, rank), dev))
+    layout = _layout(mesh, rank)
+    if layout is None:
+        return _convert(tree, param_shapes(cfg), "",
+                        lambda arr: _to_tensor(arr, dev))
+    host = _convert(tree, param_shapes(cfg), "", np.asarray)
+    return _rank_slices(host, _param_specs(host, cfg, layout), layout, dev)
 
 
 def params_to_jax(params, cfg):
@@ -243,7 +240,7 @@ def swarm_params_from_jax(tree, cfg, device=None) -> dict:
     ``device`` (None: the CUDA card); ``layers`` is a list as in JAX."""
     dev = resolve_device(device)
     out = _convert(tree, swarm_param_shapes(cfg), "",
-                   lambda arr, _: _to_tensor(arr, dev))
+                   lambda arr: _to_tensor(arr, dev))
     out["layers"] = list(out["layers"])
     return out
 
@@ -288,8 +285,19 @@ def opt_state_from_jax(state, cfg, device=None, mesh=None, rank=None):
     ``optim.AdamWState``) comes back on ``device`` (None: the CUDA
     card); with ``mesh`` the rank's slices (module docstring)."""
     dev = resolve_device(device)
-    leaf = _leaf_to_tensor(cfg, _layout(mesh, rank), dev)
+    layout = _layout(mesh, rank)
+    if layout is None:
+        return _opt_state_from_jax(state, cfg, lambda a: _to_tensor(a, dev))
+    host = _opt_state_from_jax(state, cfg, np.asarray)
+    params = _meta_params(param_shapes(cfg))
+    specs = opt_state_shardings(host, _param_specs(params, cfg, layout),
+                                params)
+    return _rank_slices(host, specs, layout, dev)
 
+
+def _opt_state_from_jax(state, cfg, leaf):
+    """:func:`opt_state_from_jax`'s conversion, ``leaf`` applied to each
+    checked leaf."""
     def conv(tree, shapes, path):
         return _convert(tree, shapes, path, leaf)
 

@@ -176,11 +176,14 @@ class FramePump:
         with self._call_lock:
             if self._closed:
                 return False
+            # counted before the pump's thread can deliver the frame, so a
+            # peer holding the reply sees it counted
+            self.frames_out += 1
             rc = self._lib.lah_pump_send(
                 self._h, conn_id, payload, len(payload)
             )
-            if rc == 0:
-                self.frames_out += 1
+            if rc != 0:
+                self.frames_out -= 1
         if rc == -2:
             raise ValueError("frame exceeds MAX_FRAME_BYTES")
         return rc == 0

@@ -3,12 +3,14 @@ mesh: the sharded MoE, the model's forward and its decoders.
 
 One port test for each test of ``tests/test_parallel.py`` (the training
 ones are in ``test_torch_parallel_train.py``).  The JAX side runs on the
-8-device virtual CPU mesh of ``tests/conftest.py``; the port runs the same
-axes as spawned ``gloo`` ranks on the CPU (``parallel/launch.RankGroup``,
-one group of each size per module, reused; every wait bounded), each rank
-computing what its JAX shard computes from the same numpy inputs and the
-JAX params sliced per rank (``convert.params_from_jax(..., mesh=)``).  A
-mesh of one rank runs in this process without a process group.
+first devices of the 8-device virtual CPU mesh of ``tests/conftest.py``;
+the port runs the same axes as spawned ``gloo`` ranks on the CPU
+(``parallel/launch.RankGroup``, one group of each size per module, reused;
+every wait bounded; 4 ranks, the smallest world with two axes of 2, where
+the JAX test's mesh has 8 devices), each rank computing what its JAX
+shard computes from the same numpy inputs and the JAX params sliced per
+rank (``convert.params_from_jax(..., mesh=)``).  A mesh of one rank runs
+in this process without a process group.
 
 Tolerances (f32 on both sides, the same math in other summation orders):
 outputs and logits within 2e-5 absolute (the single-device model tests'
@@ -24,6 +26,7 @@ import pytest
 import torch
 
 import torch_mesh_ranks as R
+from torch_mesh_oracle import jax_mesh
 from learning_at_home_tpu.parallel import (
     ShardedMixtureOfExperts as JaxMoE,
     batch_sharding as jax_batch_sharding,
@@ -53,8 +56,8 @@ def ranks():
     """``ranks(n)``: this module's group of n gloo ranks (made at first
     use, closed at the module's end)."""
     torch.set_num_threads(1)
-    # the 8 ranks start while the module's first test builds its JAX side
-    groups = {8: RankGroup(8, timeout_s=TIMEOUT_S, wait=False)}
+    # the 4 ranks start while the module's first test builds its JAX side
+    groups = {4: RankGroup(4, timeout_s=TIMEOUT_S, wait=False)}
 
     def get(n):
         if n not in groups:
@@ -90,8 +93,7 @@ def run_moe(ranks, axes, jax_kw, port_kw, x, loss=None, params=None,
     (jax y, jax aux, jax grads or None, port y assembled, port aux of
     rank 0, port grads assembled)."""
     n = int(np.prod(list(axes.values())))
-    mesh = jax_make_mesh(axes, devices=jax.devices()[:n])
-    jmoe = JaxMoE(mesh, **jax_kw)
+    jmoe = JaxMoE(jax_mesh(axes), **jax_kw)
     if params is None:
         params = jax.device_get(jmoe.init_params(jax.random.PRNGKey(key)))
     jy, jaux = jax.jit(jmoe.__call__)(params, jnp.asarray(x))
@@ -126,14 +128,14 @@ def run_moe(ranks, axes, jax_kw, port_kw, x, loss=None, params=None,
 
 
 def test_sharded_moe_matches_dense_full_routing(ranks):
-    """data 2 x expert 4, every token to every expert (k = E, capacity
+    """data 2 x expert 2, every token to every expert (k = E, capacity
     factor E): the port's ranks give the JAX output and the dense
     mixture, and drop nothing."""
     x = np.asarray(jax.random.normal(jax.random.PRNGKey(1), (32, 16)))
     kw = dict(hidden_dim=16, num_experts=8, k=8, capacity_factor=8.0,
               dtype=jnp.float32)
     jy, jaux, _, py, paux, _, params = run_moe(
-        ranks, {"data": 2, "expert": 4}, kw, dict(kw, dtype=torch.float32), x)
+        ranks, {"data": 2, "expert": 2}, kw, dict(kw, dtype=torch.float32), x)
     np.testing.assert_allclose(py, jy, atol=ATOL)
     np.testing.assert_allclose(py, dense_mixture(params, x), atol=1e-5)
     assert paux["dropped_fraction"] == jaux["dropped_fraction"] == 0.0
@@ -144,20 +146,20 @@ def test_sharded_moe_1d_expert_mesh(ranks):
     kw = dict(hidden_dim=8, num_experts=16, k=16, capacity_factor=16.0,
               dtype=jnp.float32)
     jy, _, _, py, _, _, params = run_moe(
-        ranks, {"expert": 8}, kw, dict(kw, dtype=torch.float32), x)
+        ranks, {"expert": 4}, kw, dict(kw, dtype=torch.float32), x)
     np.testing.assert_allclose(py, jy, atol=ATOL)
     np.testing.assert_allclose(py, dense_mixture(params, x), atol=1e-5)
 
 
 def test_sharded_moe_grads_flow_to_experts(ranks):
-    """Gradients of (y²).mean() + 0.01 aux on data 2 x expert 4: the gate's
+    """Gradients of (y²).mean() + 0.01 aux on data 2 x expert 2: the gate's
     summed over every token shard, the experts' over ``data`` only (the
     all-to-all's backward brings each expert its peers' cotangents) --
-    against JAX's, leaf by leaf; each rank holds E/4 experts' slice."""
+    against JAX's, leaf by leaf; each rank holds E/2 experts' slice."""
     x = np.asarray(jax.random.normal(jax.random.PRNGKey(1), (64, 16)))
     kw = dict(hidden_dim=16, num_experts=8, k=2, dtype=jnp.float32)
     jy, _, jgrads, py, _, pgrads, _ = run_moe(
-        ranks, {"data": 2, "expert": 4}, kw, dict(kw, dtype=torch.float32), x,
+        ranks, {"data": 2, "expert": 2}, kw, dict(kw, dtype=torch.float32), x,
         loss="sq_mean_aux")
     np.testing.assert_allclose(py, jy, atol=ATOL)
     assert_grads_close(pgrads, jgrads)
@@ -166,14 +168,14 @@ def test_sharded_moe_grads_flow_to_experts(ranks):
 
 
 def test_sharded_moe_tensor_parallel_matches_dense(ranks):
-    """data 2 x expert 2 x model 2: w1 split by columns and w2 by rows
+    """expert 2 x model 2: w1 split by columns and w2 by rows
     over ``model``; the ``psum`` of the partial products (b2 added after
     it) gives the JAX output, and Megatron's pair gives its gradients."""
     x = np.asarray(jax.random.normal(jax.random.PRNGKey(1), (32, 16)))
     kw = dict(hidden_dim=16, num_experts=4, k=4, capacity_factor=8.0,
               dtype=jnp.float32)
     jy, _, jgrads, py, _, pgrads, params = run_moe(
-        ranks, {"data": 2, "expert": 2, "model": 2}, kw,
+        ranks, {"expert": 2, "model": 2}, kw,
         dict(kw, dtype=torch.float32), x, loss="sq_mean")
     np.testing.assert_allclose(py, jy, atol=ATOL)
     np.testing.assert_allclose(py, dense_mixture(params, x), atol=1e-5)
@@ -183,14 +185,14 @@ def test_sharded_moe_tensor_parallel_matches_dense(ranks):
 
 def test_capacity_drop_under_imbalance(ranks):
     x = np.asarray(jax.random.normal(jax.random.PRNGKey(1), (64, 8)))
-    jmoe = JaxMoE(jax_make_mesh({"expert": 8}), hidden_dim=8, num_experts=8,
+    jmoe = JaxMoE(jax_mesh({"expert": 4}), hidden_dim=8, num_experts=8,
                   k=1, capacity_factor=1.0, dtype=jnp.float32)
     params = dict(jax.device_get(jmoe.init_params(jax.random.PRNGKey(0))))
     params["gate"] = np.zeros_like(params["gate"])
     params["gate"][:, 0] = 100.0
     kw = dict(hidden_dim=8, num_experts=8, k=1, capacity_factor=1.0)
     jy, jaux, _, py, paux, _, _ = run_moe(
-        ranks, {"expert": 8}, dict(kw, dtype=jnp.float32),
+        ranks, {"expert": 4}, dict(kw, dtype=jnp.float32),
         dict(kw, dtype=torch.float32), x, params=params)
     np.testing.assert_allclose(py, jy, atol=ATOL)
     assert paux["dropped_fraction"] == pytest.approx(jaux["dropped_fraction"])
@@ -234,21 +236,21 @@ def test_host_local_array_to_global(ranks):
 
 
 def test_sharded_moe_expert_choice_balanced_and_trains(ranks):
-    """Expert choice on data 2 x expert 4: the JAX output, zero aux loss,
+    """Expert choice on data 2 x expert 2: the JAX output, zero aux loss,
     and every expert's w1 gets a gradient.  (The model's training half is
     ``test_torch_parallel_train.py``'s test of the same name.)"""
     x = np.random.RandomState(0).randn(64, 32).astype(np.float32)
     kw = dict(hidden_dim=32, num_experts=8, k=2, gating="expert_choice")
     jy, jaux, _, py, paux, _, _ = run_moe(
-        ranks, {"data": 2, "expert": 4}, dict(kw, dtype=jnp.float32),
+        ranks, {"data": 2, "expert": 2}, dict(kw, dtype=jnp.float32),
         dict(kw, dtype=torch.float32), x)
     np.testing.assert_allclose(py, jy, atol=ATOL)
     assert paux["aux_loss"] == jaux["aux_loss"] == 0.0
     assert paux["dropped_fraction"] == pytest.approx(jaux["dropped_fraction"])
-    outs = ranks(8).run(R.moe, {"data": 2, "expert": 4},
+    outs = ranks(4).run(R.moe, {"data": 2, "expert": 2},
                         dict(kw, dtype=torch.float32),
                         jax.device_get(JaxMoE(
-                            jax_make_mesh({"data": 2, "expert": 4}),
+                            jax_mesh({"data": 2, "expert": 2}),
                             **dict(kw, dtype=jnp.float32)).init_params(
                                 jax.random.PRNGKey(0))), x, "sum")
     for _, _, grads in outs:
@@ -256,7 +258,7 @@ def test_sharded_moe_expert_choice_balanced_and_trains(ranks):
 
 
 def test_expert_choice_rejects_router_jitter(ranks):
-    msgs = ranks(8).run(R.moe_raises, {"expert": 8}, dict(
+    msgs = ranks(4).run(R.moe_raises, {"expert": 4}, dict(
         hidden_dim=16, num_experts=8, gating="expert_choice",
         router_jitter=0.1))
     assert all(m is not None and "router_jitter" in m for m in msgs)
@@ -265,9 +267,9 @@ def test_expert_choice_rejects_router_jitter(ranks):
 def test_attn_impl_auto_resolves_to_xla_on_cpu(ranks):
     kw = dict(vocab_size=64, d_model=32, n_layers=2, n_heads=4, seq_len=16,
               num_experts=8, k=2, dtype=torch.float32)
-    assert set(ranks(8).run(R.attn_impl, {"expert": 8},
+    assert set(ranks(4).run(R.attn_impl, {"expert": 4},
                             dict(kw, attn_impl="auto"))) == {"xla"}
-    assert set(ranks(8).run(R.attn_impl, {"expert": 8},
+    assert set(ranks(4).run(R.attn_impl, {"expert": 4},
                             dict(kw, attn_impl="xla"))) == {"xla"}
 
 

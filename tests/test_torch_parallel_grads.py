@@ -5,8 +5,8 @@ shape, optimizer state over shards, the sharded Adafactors against the
 single-device ones, and parameter init and conversion per rank.
 
 Set up as ``test_torch_parallel.py`` (spawned ``gloo`` CPU ranks, one
-group of each size per module; the JAX side on the 8-device virtual
-mesh).
+group of each size per module, 4 ranks; the JAX side on the first
+devices of the 8-device virtual mesh).
 
 Tolerances (f32 on both sides, summation order only): one loss within
 1e-5 relative; losses over a few optimizer steps within 1e-4 relative;
@@ -30,11 +30,14 @@ import pytest
 import torch
 
 import torch_mesh_ranks as R
-from torch_mesh_oracle import TINY, jax_model, jax_train, jax_value_and_grad
-from learning_at_home_tpu.parallel import (
-    ShardedMixtureOfExperts as JaxMoE,
-    make_mesh as jax_make_mesh,
+from torch_mesh_oracle import (
+    TINY,
+    jax_mesh,
+    jax_model,
+    jax_train,
+    jax_value_and_grad,
 )
+from learning_at_home_tpu.parallel import ShardedMixtureOfExperts as JaxMoE
 from learning_at_home_tpu_torch import optim
 from learning_at_home_tpu_torch import random as prng
 from learning_at_home_tpu_torch.convert import (
@@ -59,14 +62,14 @@ pytestmark = pytest.mark.skipif(
     len(jax.devices()) < 8, reason="needs 8 virtual devices"
 )
 
-DE = {"data": 2, "expert": 4}
+DE = {"data": 2, "expert": 2}
 
 
 @pytest.fixture(scope="module")
 def ranks():
     torch.set_num_threads(1)
-    # the 8 ranks start while the module's first test builds its JAX side
-    groups = {8: RankGroup(8, timeout_s=TIMEOUT_S, wait=False)}
+    # the 4 ranks start while the module's first test builds its JAX side
+    groups = {4: RankGroup(4, timeout_s=TIMEOUT_S, wait=False)}
 
     def get(n):
         if n not in groups:
@@ -94,7 +97,7 @@ def test_opt_state_shardings_factored_optimizer(ranks):
     _, params = jax_model(DE)
     ids, _ = batch(2)
     want, _, jstate = jax_train(DE, optax.adafactor(1e-3), [(ids, ids)])
-    adam_specs, fact_specs = ranks(8).run(R.opt_state_specs, DE,
+    adam_specs, fact_specs = ranks(4).run(R.opt_state_specs, DE,
                                           port_kw())[0]
     hits = [s for path, s in adam_specs
             if "moe" in path and path.split("/")[-1] != "gate"]
@@ -102,7 +105,7 @@ def test_opt_state_shardings_factored_optimizer(ranks):
     for path, s in fact_specs:
         if path.split("/")[1] in ("v_row", "v_col") or "count" in path:
             assert s == (), (path, s)
-    outs = ranks(8).run(R.opt_state_after, DE, port_kw(), params,
+    outs = ranks(4).run(R.opt_state_after, DE, port_kw(), params,
                         "adafactor", 1e-3, ids, ids)
     np.testing.assert_allclose(outs[0][0], want[0], rtol=LOSS_RTOL)
     got = R.assemble([o[1] for o in outs], outs[0][2], DE)
@@ -119,16 +122,16 @@ def test_opt_state_shardings_factored_optimizer(ranks):
 def test_router_jitter_draws_the_local_shape(ranks):
     """Router jitter under a mesh draws each shard's [n_local, E] noise
     (the JAX layer's key, inside shard_map): the JAX output with jitter
-    0.5 on data 2 x expert 4, layer salt 3."""
+    0.5 on data 2 x expert 2, layer salt 3."""
     x = np.random.RandomState(4).randn(64, 16).astype(np.float32)
-    jmoe = JaxMoE(jax_make_mesh(DE), hidden_dim=16, num_experts=8, k=2,
+    jmoe = JaxMoE(jax_mesh(DE), hidden_dim=16, num_experts=8, k=2,
                   capacity_factor=1.0, dtype=jnp.float32, router_jitter=0.5)
     params = jax.device_get(jmoe.init_params(jax.random.PRNGKey(0)))
     jy, _ = jax.jit(jmoe.__call__)(params, jnp.asarray(x), 3)
-    outs = ranks(8).run(R.moe, DE, dict(
+    outs = ranks(4).run(R.moe, DE, dict(
         hidden_dim=16, num_experts=8, k=2, capacity_factor=1.0,
         dtype=torch.float32, router_jitter=0.5), params, x, None, 3)
-    py = np.concatenate([outs[r][0] for r in range(8)])
+    py = np.concatenate([outs[r][0] for r in range(4)])
     np.testing.assert_allclose(py, np.asarray(jy), atol=2e-5)
 
 
@@ -142,14 +145,14 @@ def ulps(got, want):
 
 @pytest.mark.parametrize("name", ["fused_adafactor", "adafactor"])
 def test_sharded_adafactor_matches_single_device(ranks, name):
-    """Expert-stack leaves at 128 experts on expert 4 x model 2: ``b1``
+    """Expert-stack leaves at 128 experts on expert 2 x model 2: ``b1``
     [128, 256] factors over (E, f) so its ``v_col`` is a mean across
     experts spanning the shards; ``w1`` [128, 8, 256] splits f over
     ``model`` so its ``v_row`` sums over the model shards; the second
     step's gradient is 100x larger on one expert shard, so the block-RMS
     clip engages and is the whole leaf's.  Two steps: the states and the
     params against the single-device optimizer on the global gradients."""
-    axes = {"expert": 4, "model": 2}
+    axes = {"expert": 2, "model": 2}
     rs = np.random.RandomState(5)
     params = {"b1": rs.randn(128, 256).astype(np.float32),
               "w1": rs.randn(128, 8, 256).astype(np.float32) * 0.1,
@@ -160,7 +163,7 @@ def test_sharded_adafactor_matches_single_device(ranks, name):
     g2 = {k: rs.randn(*v.shape).astype(np.float32) for k, v in params.items()}
     g2["b1"][:32] *= 100.0
     g2["w1"][:32] *= 100.0
-    outs = ranks(8).run(R.optimizer_steps, axes, name, 1e-2, params, specs,
+    outs = ranks(4).run(R.optimizer_steps, axes, name, 1e-2, params, specs,
                         [g1, g2])
     single = R.make_optimizer(name, 1e-2)
     p = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
@@ -189,13 +192,13 @@ def test_sharded_adafactor_matches_single_device(ranks, name):
 # ---- init and conversion per rank ----
 
 def test_init_params_slices_equal_the_single_device_draw(ranks):
-    """Each rank's slices of ``init_params`` (data 2 x expert 2 x model 2:
-    expert stacks split over experts and the FFN dim) assemble to the
+    """Each rank's slices of ``init_params`` (expert 2 x model 2: expert
+    stacks split over experts and the FFN dim) assemble to the
     single-device draw bit for bit (which the init parity tests hold
     against the JAX draw)."""
-    axes = {"data": 2, "expert": 2, "model": 2}
+    axes = {"expert": 2, "model": 2}
     kw = port_kw(num_experts=4)
-    outs = ranks(8).run(R.init_slices, axes, kw)
+    outs = ranks(4).run(R.init_slices, axes, kw)
     specs = outs[0][1]
     got = R.assemble([o[0] for o in outs], specs, axes)
     single = DMoETransformerLM(DMoETransformerConfig(**kw), device="cpu")
@@ -209,20 +212,20 @@ def test_params_from_jax_per_rank_round_trips(ranks):
     """``params_from_jax(tree, cfg, mesh=axes, rank=r)`` for every rank
     assembles to the JAX tree bit for bit, the stacked and the tuple
     layouts; on the ranks, with their own mesh, the same slices."""
-    axes = {"data": 2, "expert": 2, "model": 2}
+    axes = {"expert": 2, "model": 2}
     for stack in (True, False):
         jm, params = jax_model(axes, num_experts=4, stack_layers=stack,
                                scan_layers=stack)
         kw = port_kw(num_experts=4, stack_layers=stack, scan_layers=stack)
         cfg = DMoETransformerConfig(**kw)
         per_rank = [params_from_jax(params, cfg, "cpu", mesh=axes, rank=r)
-                    for r in range(8)]
-        on_ranks = ranks(8).run(R.convert_slices, axes, kw, params)
-        for r in range(8):
+                    for r in range(4)]
+        on_ranks = ranks(4).run(R.convert_slices, axes, kw, params)
+        for r in range(4):
             for a, b in zip(tree_leaves(per_rank[r]),
                             tree_leaves(on_ranks[r])):
                 np.testing.assert_array_equal(a.numpy(), b)
-        slices_specs = ranks(8).run(R.init_slices, axes, kw)[0][1]
+        slices_specs = ranks(4).run(R.init_slices, axes, kw)[0][1]
         got = R.assemble([R.to_np(t) for t in per_rank], slices_specs, axes)
         for a, b in zip(got, tree_leaves(params_from_jax(params, cfg,
                                                          "cpu"))):
@@ -230,9 +233,9 @@ def test_params_from_jax_per_rank_round_trips(ranks):
 
 
 @pytest.mark.parametrize("axes,over", [
-    ({"data": 2, "expert": 4}, {}),
-    ({"data": 2, "expert": 2, "model": 2}, {"num_experts": 4}),
-    ({"data": 2, "expert": 2, "seq": 2},
+    ({"data": 2, "expert": 2}, {}),
+    ({"expert": 2, "model": 2}, {"num_experts": 4}),
+    ({"expert": 2, "seq": 2},
      {"seq_parallel": True, "capacity_factor": 8.0}),
 ], ids=["data-expert", "model", "seq-zigzag"])
 def test_mesh_gradients_match_jax(ranks, axes, over):
@@ -246,10 +249,10 @@ def test_mesh_gradients_match_jax(ranks, axes, over):
     _, params = jax_model(axes, **over)
     ids, tgt = batch(6, (4 if "seq" in axes or "model" in axes else 8, 16))
     jloss, jgrads = jax_value_and_grad(axes, params, ids, tgt, **over)
-    outs = ranks(8).run(R.loss_and_grads, axes, port_kw(**over), params, ids,
+    outs = ranks(4).run(R.loss_and_grads, axes, port_kw(**over), params, ids,
                         tgt)
     np.testing.assert_allclose(outs[0][0], float(jloss), rtol=LOSS_RTOL)
-    specs = ranks(8).run(R.init_slices, axes, port_kw(**over))[0][1]
+    specs = ranks(4).run(R.init_slices, axes, port_kw(**over))[0][1]
     got = R.assemble([o[2] for o in outs], specs, axes)
     cfg = DMoETransformerConfig(**port_kw(**over))
     want = tree_leaves(params_from_jax(jax.device_get(jgrads), cfg, "cpu"))
@@ -298,9 +301,9 @@ def test_opt_state_from_jax_per_rank():
 
 
 def test_fused_ce_runs_on_each_ranks_rows(ranks):
-    """``ce_impl="fused"`` on data 2 x expert 4 (d 128, vocab 1024 and row
+    """``ce_impl="fused"`` on data 2 x expert 2 (d 128, vocab 1024 and row
     tiles of 16, which the kernels' preconditions need): each rank runs
-    the fused CE once on its own 16 tokens (the JAX ``shard_map`` branch;
+    the fused CE once on its own 32 tokens (the JAX ``shard_map`` branch;
     its plain versions here, K1-K3 on the card), and the loss and every
     gradient leaf, the tied head's per-rank K3 share summed over the mesh
     among them, equal the JAX chunked CE's on the same mesh (the same
@@ -313,20 +316,20 @@ def test_fused_ce_runs_on_each_ranks_rows(ranks):
     tgt = rs.randint(0, 1024, (8, 16))
     jloss, jgrads = jax_value_and_grad(DE, params, ids, tgt, **over)
     kw = port_kw(ce_impl="fused", ce_block_n=16, **over)
-    outs = ranks(8).run(R.loss_and_grads_counting_fused_ce, DE, kw, params,
+    outs = ranks(4).run(R.loss_and_grads_counting_fused_ce, DE, kw, params,
                         ids, tgt)
-    assert all(o[3] == [16] for o in outs), [o[3] for o in outs]
+    assert all(o[3] == [32] for o in outs), [o[3] for o in outs]
     np.testing.assert_allclose(outs[0][0], jloss, rtol=LOSS_RTOL)
-    specs = ranks(8).run(R.init_slices, DE, kw)[0][1]
+    specs = ranks(4).run(R.init_slices, DE, kw)[0][1]
     got = R.assemble([o[2] for o in outs], specs, DE)
     cfg = DMoETransformerConfig(**kw)
     for a, b in zip(got, tree_leaves(params_from_jax(jgrads, cfg, "cpu"))):
         b = b.numpy()
         np.testing.assert_allclose(
             a, b, rtol=1e-4, atol=2e-5 * max(1.0, float(np.abs(b).max())))
-    seq = {"data": 2, "expert": 2, "seq": 2}
+    seq = {"expert": 2, "seq": 2}
     _, sp_params = jax_model(seq, seq_parallel=True, **over)
-    outs = ranks(8).run(R.loss_and_grads_counting_fused_ce, seq,
+    outs = ranks(4).run(R.loss_and_grads_counting_fused_ce, seq,
                         dict(kw, seq_parallel=True), sp_params, ids[:4],
                         tgt[:4])
     assert all(o[3] == [] for o in outs)

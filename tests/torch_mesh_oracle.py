@@ -11,6 +11,7 @@ gradient once.
 from __future__ import annotations
 
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
@@ -26,10 +27,16 @@ TINY = dict(vocab_size=64, d_model=32, n_layers=2, n_heads=4, seq_len=16,
             num_experts=8, k=2)
 
 
+def jax_mesh(axes: dict):
+    """The JAX mesh of ``axes`` on the first devices of the virtual mesh."""
+    n = math.prod(axes.values())
+    return jax_make_mesh(dict(axes), devices=jax.devices()[:n])
+
+
 @functools.lru_cache(maxsize=None)
 def _model(axes: tuple, over: tuple):
     cfg = JaxConfig(**{**TINY, "dtype": jnp.float32, **dict(over)})
-    model = JaxLM(cfg, jax_make_mesh(dict(axes)))
+    model = JaxLM(cfg, jax_mesh(dict(axes)))
     params = jax.device_get(model.init_params(jax.random.PRNGKey(0)))
     grad = jax.jit(jax.value_and_grad(
         lambda p, i, t: model.loss_fn(p, i, t)[0]))
