@@ -119,7 +119,9 @@ Phases, each of which asserts (none catches its own failure):
                on the card (256 ``ffn`` experts at hidden 512 each, adam
                3e-4, max batch 4096), and the trainer here on the card with
                its own DHT node as the expert source.  All 1024 experts
-               must be alive in the DHT before a deadline; then warm-up
+               must be alive in the DHT before a deadline, and each MoE
+               layer holds the set it then resolves (``hold_alive_sets``:
+               the servers neither join nor leave); then warm-up
                steps until the step time settles (SWARM_LM_SETTLE) and
                SWARM_LM_TIMED timed steps of ``make_train_step``
                (adamw 3e-4, 8 x 256 tokens of the synthetic corpus a
@@ -185,7 +187,8 @@ Phases, each of which asserts (none catches its own failure):
                before they stop, through a port ``Gateway`` on the card (8
                slots, the paged KV layout at page_len 16, the prefix
                cache, coalescing, prefill in chunks of 16 tokens; the
-               wire pinned to f32, every expert reply awaited).  16
+               wire pinned to f32, every expert reply awaited, each
+               layer holding the alive set it resolves first).  16
                streams, twice the slots, submitted at once through a
                ``GatewayClient``: prompts of 32-128 bytes of the synthetic
                corpus, every other one sharing a 64-byte prefix, 64 new
@@ -458,6 +461,7 @@ SWARM_LM_TIMED, SWARM_LM_OVERLAP_STEPS = 5, 3
 SWARM_LM_SETTLE_STEPS, SWARM_LM_SETTLE, SWARM_LM_WARMUP_MAX = 3, 0.1, 20
 SWARM_LM_PIPELINED_STEPS, SWARM_LM_PROFILE_STEPS = 4, 2
 SWARM_LM_DISCOVERY_S = 300.0  # the deadline for all 1024 experts
+ALIVE_HOLD_S = 3600.0  # how long phases 13 and 15 keep a layer's alive set
 # card against the CPU at a small size: two twin swarms (server processes
 # and trainer on the card; the same on the CPU) of 2 layers, grid (4,),
 # d 64, f32 with TF32 off, the same crc32-seeded experts and trainer
@@ -1805,6 +1809,27 @@ def wait_for_experts(dht, servers: SwarmServers, prefixes, want: int,
     return alive
 
 
+def hold_alive_sets(model, deadline_s: float) -> None:
+    """Each of ``model``'s MoE layers resolves its alive set through the
+    DHT until it holds the layer's whole grid, then keeps that set for
+    ALIVE_HOLD_S (fails at the deadline).  Phases 13 and 15 run on servers
+    that neither join nor leave, and phase 15 holds every arm's tokens
+    against one reference, which presumes one alive set; a refresh whose
+    lookup RPCs all time out on a loaded host returns an empty set, and
+    the layer's next dispatch then finds no expert (ROADMAP queue 3)."""
+    t_end = time.perf_counter() + deadline_s
+    for m in model.moes:
+        want = math.prod(m.grid_size)
+        while True:
+            alive = client_loop().run(m.alive_cache.get(force_refresh=True))
+            if len(alive) >= want or time.perf_counter() > t_end:
+                break
+            time.sleep(0.5)
+        assert len(alive) >= want, \
+            f"{len(alive)} of {want} experts alive under {m.uid_prefix!r}"
+        m.alive_cache.ttl = ALIVE_HOLD_S
+
+
 def server_stats(endpoints) -> list:
     """Each server's ``stats`` RPC reply (one RPC a server)."""
     async def one(ep):
@@ -1983,6 +2008,7 @@ def swarm_lm(counters, card: str, train: bool = True,
                 prng.PRNGKey(SEED), device="cuda")
             return {}, serve_gateway(counters, card, dht, params, arms=arms)
         model = SwarmDMoETransformerLM(cfg, dht)
+        hold_alive_sets(model, SWARM_LM_DISCOVERY_S)
         replies = [count_forward_replies(m) for m in model.moes]
         opt = optim.adamw(SWARM_LM_LR)
         run = {"params": model.init_params(prng.PRNGKey(SEED),
@@ -2351,6 +2377,7 @@ def serve_gateway(counters, card: str, dht, params,
     first arm).  ``arms=False`` runs phase 16 (d) only."""
     t_phase = time.perf_counter()
     model = SwarmDMoETransformerLM(SwarmTransformerConfig(**GATEWAY), dht)
+    hold_alive_sets(model, SWARM_LM_DISCOVERY_S)
     if not arms:
         experiment_load(model, params, card)
         return {}
