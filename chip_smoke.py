@@ -271,6 +271,35 @@ Phases, each of which asserts (none catches its own failure):
                holds the kernels at (b)'s shapes (MESH_ATTN, MESH_CE,
                MESH_CHECK_CE).
 
+18. checkpoints -- sharded train state on a mesh, through the CLIs a
+               user types: (a) ``train_lm --mode pod`` at phase 16 (a)'s
+               widths (config 3: d 512, 4 layers, 256 experts, seq 8192,
+               bf16 params, optax's Adafactor chain, batch 4) on two gloo
+               ranks sharing the card, mesh {"data": 1, "expert": 2}, 2
+               rows a rank, 4 steps with ``--checkpoint-every 2`` (each
+               rank writes its slices, rank 0 the marker after a
+               barrier); a second job in fresh processes ``--resume``s
+               from a root holding only step 2 and runs steps 3-4: its
+               losses must be the first job's bit for bit, and each rank
+               must launch the flash forward, dkv and dq kernels 4 times a
+               step (K1-K3 0: train_lm takes the chunked CE, as the JAX
+               script does); prints the bytes a save writes, save and
+               restore seconds and MB/s, step times, peak memory; (b) step
+               2 restored onto one device (no mesh), every leaf cut to
+               each rank's slice equal to what that rank saved (digests of
+               the bytes), then ``generate_lm --checkpoint-dir`` decodes 16
+               greedy tokens for 2 prompts of 4096 bytes from that step
+               onto the single-device model: 4 flash launches (the
+               prefill); (c) ``decode_gap_eval`` at its own widths on
+               {"expert": 2} (two gloo ranks on the card), --steps cut to
+               CKPT_GAP_STEPS: both ranks the same report, the JAX
+               script's keys, finite CEs; (d) on the host, beside (c)
+               and (b):
+               ``dht_swarm_sim --sizes 128 --experts 64 --churn-rounds 2
+               --lookups 150 --check`` passes its floors, and ``sim.runner
+               --nodes 200 ... --check`` prints the JAX runner's report
+               byte for byte (its sha256) with its verdict.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA card or
 without the repository's package beside it.
@@ -284,16 +313,19 @@ kernel is built, no kernels line); ``--elastic-only`` runs phases 1 and 14;
 phase 15 on key-seeded params, then the twins' check;
 ``--experiments-only`` runs phases 1, 2 and 16 ((d) on phase 13's servers
 and key-seeded params; no kernels line); ``--mesh-only`` runs phases 1, 2
-and 17 (no kernels line).
+and 17 (no kernels line); ``--ckpt-only`` runs phases 1, 2 and 18 (no
+kernels line).
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import concurrent.futures
 import contextlib
 import dataclasses
 import gc
+import hashlib
 import itertools
 import json
 import math
@@ -327,8 +359,13 @@ from learning_at_home_tpu_torch.client.rpc import (
     reset_client_rpc,
 )
 from learning_at_home_tpu_torch.dht import DHT
+from learning_at_home_tpu_torch.convert import (
+    numpy_to_tensor,
+    tensor_to_numpy,
+)
 from learning_at_home_tpu_torch.experiments import (
     benchmark_throughput,
+    decode_gap_eval,
     generate_lm,
     loadgen,
     mnist_expert,
@@ -359,7 +396,12 @@ from learning_at_home_tpu_torch.ops import token_dispatch as td
 from learning_at_home_tpu_torch.ops.fused_adafactor import fused_adafactor
 from learning_at_home_tpu_torch.parallel import sharded_moe
 from learning_at_home_tpu_torch.parallel.launch import RankGroup
-from learning_at_home_tpu_torch.parallel.mesh import local_shard, make_mesh
+from learning_at_home_tpu_torch.parallel.mesh import (
+    local_shard,
+    make_mesh,
+    mesh_layout,
+    opt_state_shardings,
+)
 from learning_at_home_tpu_torch.models.layers import make_expert
 from learning_at_home_tpu_torch.server import lifecycle
 from learning_at_home_tpu_torch.server.expert_backend import (
@@ -368,7 +410,8 @@ from learning_at_home_tpu_torch.server.expert_backend import (
 )
 from learning_at_home_tpu_torch.server.server import Server, uid_key
 from learning_at_home_tpu_torch.utils import telemetry
-from learning_at_home_tpu_torch.utils.nested import nested_flatten
+from learning_at_home_tpu_torch.utils import checkpoint as ckpt_io
+from learning_at_home_tpu_torch.utils.nested import nested_flatten, nested_map
 from learning_at_home_tpu_torch.utils.profiling import timeline
 from learning_at_home_tpu_torch.utils.subproc import find_orphan_servers
 from learning_at_home_tpu_torch.tree import tree_leaves, tree_map
@@ -674,6 +717,46 @@ MESH_LOSS_RTOL, MESH_GRAD_RTOL = 1e-4, 2.0 ** -6
 # same tokens.
 MESH_SEQ_LOSS_RTOL = 1e-5
 ATTN_LEAVES = ("wq", "wk", "wv", "wo")
+# phase 18 (sharded checkpoints on a mesh): (a) phase 16 (a)'s train_lm pod
+# run (config 3's widths at seq 8192, bf16 params, optax's Adafactor
+# chain, batch 4) on two gloo ranks sharing the card, mesh {"data": 1,
+# "expert": 2}, 2 rows a rank, a checkpoint every CKPT_EVERY steps; a
+# second job resumes from step CKPT_EVERY and must repeat the first's
+# losses bit for bit; (b) that step restored onto one device, every leaf
+# against the ranks' slices, and generate_lm decoding from it:
+# CKPT_GEN_NEW tokens on 2 prompts of EXP_GEN_PROMPT bytes; (c)
+# decode_gap_eval at its own widths (d 128, 2 layers, 16 experts, seq
+# 128, batch 16) on {"expert": 2}, --steps cut from 150 to CKPT_GAP_STEPS;
+# (d) the two macro-sim entry points on the host, beside (c) and (b)
+CKPT_EVERY = 2
+CKPT_POD = EXP_POD + ["--checkpoint-every", str(CKPT_EVERY)]
+CKPT_GEN_NEW = 16
+CKPT_GEN = ["--seq-len", "8192", "--d-model", "512", "--n-layers", "4",
+            "--num-experts", "256", "--batch", "2", "--max-new-tokens",
+            str(CKPT_GEN_NEW)]
+CKPT_GAP_STEPS = 20
+CKPT_GAP_KEYS = {"gating", "steps", "num_experts", "eval_ce_training_routing",
+                 "eval_ce_decode_fallback_routing", "decode_gap_nats",
+                 "control_topk_eval_ce"}  # experiments/decode_gap_eval.py's
+CKPT_CALL_S = 420.0
+CKPT_SIM_S = 300.0
+CKPT_SIMS = {
+    "experiments.dht_swarm_sim": [
+        "--sizes", "128", "--experts", "64", "--churn-rounds", "2",
+        "--lookups", "150", "--check"],
+    "sim.runner": [
+        "--nodes", "200", "--servers", "48", "--gateways", "4",
+        "--experts", "64", "--trace", "poisson:60:6,burst:420:3",
+        "--churn", "4:kill:0.15", "--check"],
+}
+# the JAX runner's report at that scenario (seed 0), which the port's must
+# repeat byte for byte: the sha256 of the first line (without its newline)
+# of ``python -m learning_at_home_tpu.sim.runner`` with those flags; and
+# its --check verdict: the reference scenario misses its own DHT hit-rate
+# floor (0.8286 < 0.95)
+MACRO_SIM_SHA256 = (
+    "83e7470025855831c79e6dde37732964be4cd663137bd59814eaea06c8e82f5e")
+MACRO_SIM_VERDICT = (1, ["MACRO_SIM_FAIL: lookup hit_rate 0.8286 < 0.95"])
 
 
 def phase(name: str) -> None:
@@ -3160,6 +3243,317 @@ def mesh_phase(card: str) -> dict:
     }
 
 
+# ---- phase 18: sharded checkpoints and resume on a mesh ----
+
+
+def host_leaves(params, opt_state) -> dict:
+    """{"<item>/<i>": a host copy of the i-th leaf in the nest's order}:
+    a rank's slices, or whole leaves cut to a rank's slices."""
+    def copy(leaf):
+        if torch.is_tensor(leaf):  # .cpu() copies a card tensor
+            return tensor_to_numpy(leaf if leaf.is_cuda else leaf.clone())
+        return np.array(leaf)
+
+    return {f"{item}/{i}": copy(leaf)
+            for item, tree in (("params", params), ("opt_state", opt_state))
+            for i, leaf in enumerate(nested_flatten(tree))}
+
+
+def leaf_digests(leaves: dict) -> dict:
+    """{key: blake2b of the leaf's bytes} of :func:`host_leaves`' output,
+    hashed on 8 threads (hashlib lets go of the GIL)."""
+    def digest(arr):
+        arr = np.ascontiguousarray(arr)
+        return hashlib.blake2b(
+            memoryview(arr.reshape(-1).view(np.uint8))).hexdigest()
+
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        return dict(zip(leaves, pool.map(digest, leaves.values())))
+
+
+def ckpt_rank_job(argv: list, digest_step: int | None) -> dict:
+    """Phase 18 (a): one job's ``train_lm.main(argv)`` on this rank, the
+    launch counters reset just before it.  Each save's and the resume's
+    seconds (the checkpointer's own), and with ``digest_step`` the
+    digests of the slices saved at that step."""
+    from learning_at_home_tpu_torch.utils.checkpoint import TrainCheckpointer
+
+    _rank_setup()
+    counters = mesh_counters()
+    saved, save_s, restore_s = {}, {}, []
+    save, restore = TrainCheckpointer.save, TrainCheckpointer.restore_latest
+
+    def measured_save(self, step, params, opt_state):
+        t = time.perf_counter()
+        save(self, step, params, opt_state)
+        save_s[step] = time.perf_counter() - t
+        if step == digest_step:  # host copies: the steps update in place
+            saved.update(host_leaves(params, opt_state))
+
+    def measured_restore(self, params, opt_state):
+        t = time.perf_counter()
+        out = restore(self, params, opt_state)
+        restore_s.append(time.perf_counter() - t)
+        return out
+
+    TrainCheckpointer.save = measured_save
+    TrainCheckpointer.restore_latest = measured_restore
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    try:
+        out = train_lm.main(list(argv))
+    finally:
+        TrainCheckpointer.save = save
+        TrainCheckpointer.restore_latest = restore
+    return {**out, "launches": read_counts(counters),
+            "digests": leaf_digests(saved), "save_s": save_s,
+            "restore_s": restore_s[0] if restore_s else None,
+            "rank": dist.get_rank(),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def ckpt_gap_rank(argv: list) -> dict:
+    """Phase 18 (c): ``decode_gap_eval.main(argv)`` on this rank."""
+    _rank_setup()
+    counters = mesh_counters()
+    reset_counts(counters)
+    t = time.perf_counter()
+    out = decode_gap_eval.main(list(argv))
+    return {"out": out, "s": time.perf_counter() - t,
+            "launches": read_counts(counters)}
+
+
+def start_sims() -> dict:
+    """Phase 18 (d): the macro-sim entry points as processes of their
+    own, started now; {module: (process, log path, start time)}."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = {}
+    for module, argv in CKPT_SIMS.items():
+        log = experiment_log(module.replace(".", "_"))
+        with open(log, "w") as out:
+            procs[module] = (subprocess.Popen(
+                [sys.executable, "-m", f"learning_at_home_tpu_torch.{module}",
+                 *argv], cwd=root, env=dict(os.environ, PYTHONPATH=root),
+                stdout=out, stderr=subprocess.STDOUT), log, time.time())
+    return procs
+
+
+def finish_sims(procs: dict, card: str) -> None:
+    """Phase 18 (d)'s checks: dht_swarm_sim passes its floors; the
+    runner's report is the JAX runner's bytes with its verdict.  A run's
+    seconds end at its log's last write (its last line)."""
+    deadline = time.time() + CKPT_SIM_S
+    done = {}
+    for module, (proc, log, t0) in procs.items():
+        try:
+            rc = proc.wait(timeout=max(1.0, deadline - time.time()))
+        except subprocess.TimeoutExpired:
+            for other in procs.values():
+                other[0].kill()
+            raise AssertionError(f"{module} ran past {CKPT_SIM_S:.0f} s; "
+                                 f"its log: {log}")
+        with open(log, errors="replace") as f:
+            done[module] = (rc, f.read().splitlines(),
+                            os.path.getmtime(log) - t0)
+    rc, lines, secs = done["experiments.dht_swarm_sim"]
+    size = json_lines("\n".join(lines))[0]
+    argv = " ".join(CKPT_SIMS["experiments.dht_swarm_sim"])
+    print(f"(d) dht_swarm_sim {argv}: exit {rc} in {secs:.1f} s (host, "
+          f"beside (c) and (b)); join mean "
+          f"{size['join']['mean_ms']} ms, heartbeat store-RPC reduction "
+          f"{size['heartbeat']['reduction']}x, churn hit rate "
+          f"{size['churn']['hit_rate']}, lookup p50/p99 "
+          f"{size['churn']['lookup_p50_ms']}/{size['churn']['lookup_p99_ms']}"
+          f" ms; rpcs {size['rpcs']}")
+    assert rc == 0 and "DHT_SWARM_SIM_OK" in lines, lines[-5:]
+    rc, lines, secs = done["sim.runner"]
+    report = lines[0]
+    digest = hashlib.sha256(report.encode()).hexdigest()
+    fails = [line for line in lines if line.startswith("MACRO_SIM")]
+    rep = json.loads(report)
+    tr = rep["traffic"]
+    print(f"(d) sim.runner {' '.join(CKPT_SIMS['sim.runner'])}: exit {rc} "
+          f"in {secs:.1f} s (host, beside (c) and (b)), "
+          f"{rep['virtual_duration_s']} "
+          f"s virtual; arrivals {tr['arrivals']}, completed "
+          f"{tr['completed']}, shed {tr['shed_fraction']}, TTFT p50/p99 "
+          f"{tr['ttft_p50_ms']}/{tr['ttft_p99_ms']} ms, ITL p50/p99 "
+          f"{tr['itl_p50_ms']}/{tr['itl_p99_ms']} ms, DHT hit rate "
+          f"{rep['dht']['hit_rate']}; report sha256 {digest} (the JAX "
+          f"runner's: {digest == MACRO_SIM_SHA256}); verdict {fails}")
+    assert digest == MACRO_SIM_SHA256, report
+    assert (rc, fails) == MACRO_SIM_VERDICT, (rc, fails)
+    total = max(secs for _, _, secs in done.values())
+    print(f"(d) the two sim runs, side by side: both done {total:.1f} s "
+          f"after their start [{card}]")
+
+
+def link_step(src: str, dst: str, step: int) -> None:
+    """A root holding only ``src``'s step ``step`` (hard links)."""
+    name = f"step_{step:09d}"
+    for base, _, files in os.walk(os.path.join(src, name)):
+        rel = os.path.relpath(base, src)
+        os.makedirs(os.path.join(dst, rel), exist_ok=True)
+        for f in files:
+            os.link(os.path.join(base, f), os.path.join(dst, rel, f))
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(base, f))
+               for base, _, files in os.walk(path) for f in files)
+
+
+def ckpt_phase(counters, card: str) -> dict:
+    """Phase 18; returns the launches of (a) (both jobs, both ranks) and
+    of (b)'s generate."""
+    t0 = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "phase18")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    first, resumed, only = (os.path.join(root, name)
+                            for name in ("first", "resumed", "only"))
+    print(f"checkpoints under {root}: {shutil.disk_usage(root).free / 1e9:.1f}"
+          " GB free")
+    gc.collect()
+    torch.cuda.empty_cache()
+    steps = EXP_POD_STEPS
+    want = {"flash_attn_fwd": 4, "flash_attn_bwd_dkv": 4,
+            "flash_attn_bwd_dq": 4, "fused_ce_fwd": 0, "fused_ce_dx": 0,
+            "fused_ce_dhead": 0, "token_dispatch": 0}  # a step, no remat
+    # the second job's processes start (imports, rendezvous) while the
+    # first job runs; they touch nothing of it and run only after it ends
+    second = RankGroup(2, backend="gloo", timeout_s=CKPT_CALL_S, wait=False)
+    with second:
+        with RankGroup(2, backend="gloo", timeout_s=CKPT_CALL_S) as group:
+            job1 = group.run(ckpt_rank_job,
+                             CKPT_POD + ["--checkpoint-dir", first],
+                             CKPT_EVERY)
+        t1 = time.perf_counter()
+        assert ckpt_io.list_steps(first) == [CKPT_EVERY, steps], \
+            ckpt_io.list_steps(first, only_complete=False)
+        link_step(first, resumed, CKPT_EVERY)
+        link_step(first, only, CKPT_EVERY)
+        job2 = second.run(ckpt_rank_job, CKPT_POD + [
+            "--checkpoint-dir", resumed, "--resume"], None)
+        t2 = time.perf_counter()
+        # (d) on the host beside (c) and (b), not beside (a)'s ranks
+        sims = start_sims()
+        gap = second.run(ckpt_gap_rank, ["--steps", str(CKPT_GAP_STEPS)])
+    t3 = time.perf_counter()
+    saved = dir_bytes(os.path.join(first, f"step_{CKPT_EVERY:09d}"))
+    for job, label, n_steps in ((job1, "first job", steps),
+                                (job2, "resumed job", steps - CKPT_EVERY)):
+        for out in job:
+            per_step = {k: v / n_steps for k, v in out["launches"].items()}
+            walls = out["wall_s"]
+            restore = ("" if out["restore_s"] is None
+                       else f"; restore {out['restore_s']:.3f} s")
+            saves = {k: round(v, 3) for k, v in out["save_s"].items()}
+            then = [round(float(x), 3) for x in np.diff(walls)]
+            print(f"(a) {label}, rank {out['rank']}: losses "
+                  f"{out['losses']}; step s: first {walls[0]:.3f}, then "
+                  f"{then}; saves {saves} s{restore}; peak "
+                  f"{out['peak_gb']:.2f} GB; launches a step {per_step}")
+            assert len(out["losses"]) == n_steps and all(
+                math.isfinite(v) for v in out["losses"]), out["losses"]
+            assert per_step == want, (per_step, want)
+    for job in (job1, job2):
+        assert job[0]["losses"] == job[1]["losses"], "the ranks disagree"
+    same = job2[0]["losses"] == job1[0]["losses"][CKPT_EVERY:]
+    print(f"(a) resumed from step {CKPT_EVERY}: losses "
+          f"{job2[0]['losses']} against the first job's "
+          f"{job1[0]['losses'][CKPT_EVERY:]}: bit for bit {same}")
+    assert same, "the resumed losses differ from the first job's"
+    save_wall = max(out["save_s"][CKPT_EVERY] for out in job1)
+    restore_wall = max(out["restore_s"] for out in job2)
+    print(f"(a) a save writes {saved / 1e9:.3f} GB (both ranks' files): "
+          f"{save_wall:.3f} s, {saved / save_wall / 1e6:.1f} MB/s; the "
+          f"resume reads it in {restore_wall:.3f} s, "
+          f"{saved / restore_wall / 1e6:.1f} MB/s; first job {t1 - t0:.1f} "
+          f"s, resumed job {t2 - t1:.1f} s (process start and the init "
+          f"draw included) [{card}]")
+
+    # (b) the step restored without a mesh (whole leaves) onto one device,
+    # then decoded from (a root holding only it)
+    t = time.perf_counter()
+    whole = {name: ckpt_io.restore_pytree(first, CKPT_EVERY, name)
+             for name in ("params", "opt_state")}
+    restore_host = time.perf_counter() - t
+    on_card = nested_map(lambda a: numpy_to_tensor(a, "cuda"), whole)
+    torch.cuda.synchronize()
+    restore_one = time.perf_counter() - t
+    del on_card
+    axes = {"data": 1, "expert": 2}
+    cfg = DMoETransformerConfig(vocab_size=VOCAB_SIZE, d_model=512,
+                                n_layers=4, seq_len=8192, num_experts=256)
+    for out in job1:
+        layout = mesh_layout(axes, out["rank"])
+        specs = DMoETransformerLM(cfg, device="cuda",
+                                  mesh=layout).param_specs(whole["params"])
+        state_specs = opt_state_shardings(whole["opt_state"], specs,
+                                          whole["params"])
+        got = leaf_digests(host_leaves(*(
+            nested_map(lambda a, sp: local_shard(a, sp, layout), whole[item],
+                       sp)
+            for item, sp in (("params", specs), ("opt_state", state_specs)))))
+        differ = sorted(k for k in out["digests"] if got.get(k) !=
+                        out["digests"][k])
+        print(f"(b) step {CKPT_EVERY} restored without a mesh "
+              f"({restore_host:.3f} s; onto the card {restore_one:.3f} s), "
+              f"cut to rank "
+              f"{out['rank']}'s slices: {len(got)} leaves, {len(differ)} "
+              f"differ from the rank's")
+        assert sorted(got) == sorted(out["digests"]) and not differ, differ
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    prompt = bytes(load_corpus(seed=SEED)[:EXP_GEN_PROMPT].astype(
+        np.uint8)).decode("ascii")
+    reset_counts(counters)
+    t = time.perf_counter()
+    with twin_stdout("generate_lm_phase18"):
+        gen = generate_lm.main(CKPT_GEN + ["--checkpoint-dir", only,
+                                           "--prompt", prompt])
+    gen_s = time.perf_counter() - t
+    gen_counts = read_counts(counters)
+    tokens = gen["tokens"]
+    print(f"(b) generate_lm --checkpoint-dir (step {CKPT_EVERY}, written by "
+          f"the two ranks) onto the single-device model: {tokens.shape[0]} x "
+          f"{EXP_GEN_PROMPT}-byte prompts, {CKPT_GEN_NEW} greedy tokens "
+          f"{tokens[0, EXP_GEN_PROMPT:].tolist()} in {gen_s:.1f} s (its "
+          f"init draw and restore included); launches {gen_counts}")
+    assert tokens.shape == (2, EXP_GEN_PROMPT + CKPT_GEN_NEW), tokens.shape
+    assert (tokens[0] == tokens[1]).all() and (tokens < VOCAB_SIZE).all()
+    assert gen_counts["flash_attn_fwd"] == 4, gen_counts  # 4 layers' prefill
+
+    # (c) decode_gap_eval on the expert mesh
+    outs = [g["out"] for g in gap]
+    print(f"(c) decode_gap_eval --steps {CKPT_GAP_STEPS} (cut from 150) on "
+          f"{{'expert': 2}}: {outs[0]} in {gap[0]['s']:.1f} s; launches "
+          f"{gap[0]['launches']} [{card}]")
+    assert outs[0] == outs[1], outs
+    assert set(outs[0]) == CKPT_GAP_KEYS, set(outs[0]) ^ CKPT_GAP_KEYS
+    assert all(math.isfinite(outs[0][k]) for k in (
+        "eval_ce_training_routing", "eval_ce_decode_fallback_routing",
+        "control_topk_eval_ce")), outs[0]
+
+    finish_sims(sims, card)
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"checkpoint phase: {time.perf_counter() - t0:.1f} s ((a) "
+          f"{t2 - t0:.1f}, (c) {t3 - t2:.1f}, (b) and (d)'s wait "
+          f"{time.perf_counter() - t3:.1f}) [{card}]")
+
+    def summed(runs):
+        return {k: sum(r["launches"][k] for r in runs) for k in want}
+
+    return {
+        f"checkpoint (a) gloo data 1 x expert 2, both ranks ({steps} + "
+        f"{steps - CKPT_EVERY} steps)": summed(job1 + job2),
+        "checkpoint (b) generate_lm from the ranks' checkpoint": gen_counts,
+    }
+
+
 # ---- phase 14: the elastic swarm ----
 
 
@@ -3871,6 +4265,10 @@ def main() -> int:
                     help="phases 1, 2 and 16 only (the experiment drivers; "
                          "(d) on phase 13's servers serving key-seeded "
                          "params; no kernels line)")
+    ap.add_argument("--ckpt-only", action="store_true",
+                    help="phases 1, 2 and 18 only (sharded checkpoints and "
+                         "resume on a mesh, decode_gap_eval on the expert "
+                         "mesh, the macro-sim; no kernels line)")
     args = ap.parse_args()
     phase("device")
     if not torch.cuda.is_available():
@@ -3904,6 +4302,13 @@ def main() -> int:
         build.build_all(sorted(build.LIBRARIES))
         phase("mesh")
         mesh_phase(card)
+        print(card)
+        return 0
+    if args.ckpt_only:
+        phase("build")
+        build.build_all(sorted(build.LIBRARIES))
+        phase("checkpoints")
+        ckpt_phase(counters, card)
         print(card)
         return 0
     if args.experiments_only:
@@ -3977,6 +4382,9 @@ def main() -> int:
     phase("mesh")
     plans.clear()  # the dispatch plans' card tensors: the ranks need room
     launches.update(mesh_phase(card))
+
+    phase("checkpoints")
+    launches.update(ckpt_phase(counters, card))
 
     kernels = []
     for name, (source, replaces, shape) in KERNELS.items():

@@ -1,8 +1,14 @@
 """Quantify the expert-choice -> token-choice decode routing gap.
 
-The port of ``experiments/decode_gap_eval.py`` (pod mode, one device):
-its flags and JSON keys, plus ``--device`` (default: the CUDA card;
-without one it raises).
+The port of ``experiments/decode_gap_eval.py``: its flags, JSON keys and
+errors, plus ``--device`` (default: the CUDA card; without one it
+raises).  Launched on N ranks (``torchrun --nproc-per-node N -m
+learning_at_home_tpu_torch.experiments.decode_gap_eval ...``, or the
+ranks of ``parallel/launch.RankGroup``) it runs on the JAX script's mesh
+``{"expert": N}``, over ``nccl`` on the cards or ``gloo`` with ``--device
+cpu``: each rank trains and evaluates on its rows of every batch, the
+CEs are the whole batch's, and rank 0 prints.  On one rank it runs on the
+single-device model.
 
 Expert-choice gating routes each expert to its top-C tokens OF THE BATCH,
 so autoregressive decode cannot reproduce the training-time routing and
@@ -25,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -50,8 +57,36 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _expert_mesh(args, dev):
+    """The JAX script's mesh ``{"expert": N}`` over the job's N ranks, or
+    None for one rank (the single-device model).  Joins the job ``torchrun``
+    describes in the environment when no process group exists yet."""
+    import torch
+    import torch.distributed as dist
+
+    from learning_at_home_tpu_torch.parallel.mesh import make_mesh, rank_device
+
+    if not dist.is_initialized():
+        if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+            return None
+        if dev.type != "cpu":
+            torch.cuda.set_device(rank_device(args.device))
+        dist.init_process_group("gloo" if dev.type == "cpu" else "nccl")
+    n = dist.get_world_size()
+    if args.batch_size % n:
+        raise SystemExit(
+            f"--batch-size {args.batch_size} must divide across the "
+            f"{n} token shards of the expert mesh"
+        )
+    if n == 1:
+        return None
+    # the rank's card (cuda:LOCAL_RANK) unless --device names one
+    return make_mesh({"expert": n}, device=args.device)
+
+
 def main(argv=None) -> dict:
-    """Runs the evaluation; prints and returns its JSON result."""
+    """Runs the evaluation; prints and returns its JSON result (every rank
+    returns it, rank 0 prints)."""
     args = build_parser().parse_args(argv)
 
     import torch
@@ -70,6 +105,15 @@ def main(argv=None) -> dict:
     )
 
     dev = resolve_device(args.device)
+    mesh = _expert_mesh(args, dev)
+    if mesh is not None:
+        dev = mesh.device
+    printing = mesh is None or mesh.rank == 0
+
+    def note(text: str) -> None:
+        if printing:
+            print(text, file=sys.stderr, flush=True)
+
     tokens = load_corpus(args.data, seed=args.seed)
     # train/eval split: DISJOINT stream halves (reseeding the batcher
     # alone would sample overlapping windows of the same stream, and the
@@ -88,7 +132,7 @@ def main(argv=None) -> dict:
             dtype=torch.bfloat16 if dev.type != "cpu" else torch.float32,
             gating=gating,
         )
-        return DMoETransformerLM(cfg, device=dev)
+        return DMoETransformerLM(cfg, device=dev, mesh=mesh)
 
     def train(model: DMoETransformerLM):
         params = model.init_params(prng.PRNGKey(args.seed))
@@ -103,29 +147,30 @@ def main(argv=None) -> dict:
         for step in range(args.steps):
             ids, tgt = next(batches)
             params, opt_state, loss, metrics = step_fn(
-                params, opt_state, torch.from_numpy(ids),
-                torch.from_numpy(tgt))
+                params, opt_state, model.local_batch(torch.from_numpy(ids)),
+                model.local_batch(torch.from_numpy(tgt)))
             if step % 25 == 0 or step == args.steps - 1:
-                print(f"#   step {step}: loss {float(loss):.4f} "
-                      f"ce {float(metrics['ce']):.4f} "
-                      f"({time.perf_counter() - t0:.0f}s)",
-                      file=sys.stderr, flush=True)
+                note(f"#   step {step}: loss {float(loss):.4f} "
+                     f"ce {float(metrics['ce']):.4f} "
+                     f"({time.perf_counter() - t0:.0f}s)")
         return params
 
     @torch.no_grad()
     def eval_ce(model: DMoETransformerLM, params) -> float:
-        """Teacher-forced CE over held-out batches under MODEL's routing."""
+        """Teacher-forced CE over held-out batches under MODEL's routing
+        (on a mesh each rank feeds its rows; the CE is the batch's)."""
         eval_batches = LMBatcher(eval_tokens, args.batch_size, args.seq_len,
                                  seed=args.seed + 10_000)
         total, n = 0.0, 0
         for _, (ids, tgt) in zip(range(args.eval_batches), eval_batches):
-            _, metrics = model.loss_fn(params, torch.from_numpy(ids).to(dev),
-                                       torch.from_numpy(tgt).to(dev))
+            ids = model.local_batch(torch.from_numpy(ids)).to(dev)
+            tgt = model.local_batch(torch.from_numpy(tgt)).to(dev)
+            _, metrics = model.loss_fn(params, ids, tgt)
             total += float(metrics["ce"])
             n += 1
         return total / n
 
-    print("# training expert-choice model", file=sys.stderr, flush=True)
+    note("# training expert-choice model")
     ec_model = make_model("expert_choice")
     ec_params = train(ec_model)
     ce_train_routing = eval_ce(ec_model, ec_params)
@@ -142,11 +187,12 @@ def main(argv=None) -> dict:
         "decode_gap_nats": round(ce_decode_routing - ce_train_routing, 4),
     }
     if not args.skip_control:
-        print("# training token-choice control", file=sys.stderr, flush=True)
+        note("# training token-choice control")
         tc_model = make_model("topk")
         tc_params = train(tc_model)
         out["control_topk_eval_ce"] = round(eval_ce(tc_model, tc_params), 4)
-    print(json.dumps(out), flush=True)
+    if printing:
+        print(json.dumps(out), flush=True)
     return out
 
 

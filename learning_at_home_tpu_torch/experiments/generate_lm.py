@@ -43,15 +43,30 @@ def _parse_ep(s: str) -> tuple[str, int]:
 
 
 def _restore_params(checkpoint_dir: str, params):
+    """The newest complete step's params as whole leaves on ``params``'
+    devices and in their dtypes (a bf16 checkpoint widens exactly, as
+    orbax casts to its template), whether one process or the ranks of a
+    mesh (``train_lm --mode pod`` on N ranks) saved it."""
+    from learning_at_home_tpu_torch.convert import numpy_to_tensor
     from learning_at_home_tpu_torch.utils.checkpoint import (
         latest_step,
-        restore_pytree_like,
+        restore_pytree,
     )
+    from learning_at_home_tpu_torch.utils.nested import nested_map
 
     step = latest_step(checkpoint_dir)
     if step is None:
         raise SystemExit(f"no checkpoint under {checkpoint_dir}")
-    params = restore_pytree_like(checkpoint_dir, step, "params", params)
+
+    def leaf(arr, t):
+        if tuple(arr.shape) != tuple(t.shape):
+            raise SystemExit(
+                f"checkpoint leaf of shape {tuple(arr.shape)} where the "
+                f"model has {tuple(t.shape)}: pass train_lm's widths")
+        return numpy_to_tensor(arr, t.device).to(t.dtype)
+
+    params = nested_map(leaf, restore_pytree(checkpoint_dir, step, "params",
+                                             params), params)
     print(f"# restored step {step}", file=sys.stderr, flush=True)
     return params
 

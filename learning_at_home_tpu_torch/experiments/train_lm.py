@@ -12,7 +12,10 @@ codes, plus ``--device`` (default: the CUDA card; without one it raises).
   runs on the JAX script's mesh ``{"data": dp, "expert": N // dp}`` (dp 2
   when N is even and > 2, else 1), over ``nccl`` on the cards or ``gloo``
   with ``--device cpu``; each rank trains on its rows of every batch and
-  rank 0 prints.  Checkpoints on more than one rank are not ported yet.
+  rank 0 prints.  ``--checkpoint-dir``, ``--checkpoint-every`` and
+  ``--resume`` work on N ranks: each rank writes and reads its slices
+  (``utils/checkpoint.py``), and a step saved on one mesh restores onto
+  another, or onto one device (``generate_lm --checkpoint-dir``).
 - ``--mode swarm`` : the decentralized path -- this process starts N
   expert servers and a DHT swarm on localhost (in-process, or
   ``--subprocess-servers`` through ``python -m
@@ -226,9 +229,6 @@ def _pod_mesh(args, dev):
             f"--batch-size {args.batch_size} must be divisible by the "
             f"{n} batch shards of mesh {mesh.shape}"
         )
-    if args.checkpoint_dir:
-        raise SystemExit("--checkpoint-dir on more than one rank is not "
-                         "ported yet (ROADMAP.md, queue 1)")
     return mesh
 
 
@@ -285,18 +285,21 @@ def run_pod(args) -> dict:
             TrainCheckpointer,
         )
 
-        ckpt = TrainCheckpointer(args.checkpoint_dir)
+        ckpt = TrainCheckpointer(args.checkpoint_dir, mesh=mesh,
+                                 specs=model.param_specs(params))
         if args.resume:
             restored = ckpt.restore_latest(params, opt_state)
             if restored is not None:
                 start_step, params, opt_state = restored
-                print(f"# resumed from step {start_step}", flush=True)
+                if printing:
+                    print(f"# resumed from step {start_step}", flush=True)
 
     tokens = load_corpus(args.data, seed=args.seed)
     batches = LMBatcher(tokens, args.batch_size, args.seq_len, seed=args.seed)
     batches.skip(start_step)  # resume continues the data order, no replay
 
     out = {"losses": [], "wall_s": []}
+    saved = None
     t0 = time.perf_counter()
     for step, (ids, tgt) in zip(range(start_step, args.steps), batches):
         params, opt_state, loss, metrics = step_fn(
@@ -305,6 +308,7 @@ def run_pod(args) -> dict:
         if ckpt and args.checkpoint_every and \
                 (step + 1) % args.checkpoint_every == 0:
             ckpt.save(step + 1, params, opt_state)
+            saved = step + 1
         if step % args.log_every == 0 or step == args.steps - 1:
             value = float(loss)
             elapsed = time.perf_counter() - t0
@@ -322,8 +326,10 @@ def run_pod(args) -> dict:
                 "tokens_per_sec": round(tps, 1),
             }), flush=True)
     if ckpt is not None:
-        ckpt.save(args.steps, params, opt_state)
-        print(f"# checkpointed final step {args.steps}", flush=True)
+        if saved != args.steps:  # not written again when just saved
+            ckpt.save(args.steps, params, opt_state)
+        if printing:
+            print(f"# checkpointed final step {args.steps}", flush=True)
     return out
 
 

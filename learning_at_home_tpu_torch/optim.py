@@ -206,14 +206,14 @@ def _xla_cpu_sum(x: torch.Tensor, dims) -> torch.Tensor:
     return _sequential_sum(x.reshape(*x.shape[:k], -1))
 
 
-def _mean(x, dim=None, keepdim: bool = False, shard=None):
-    """``jnp.mean``: summed in f32 (a bf16 input upcast), times the f32
-    reciprocal of the count (XLA's rewrite of the division by a
-    constant), cast back to the input's dtype.  On the CPU the sum
-    follows XLA:CPU's order (:func:`_xla_cpu_sum`); on the card there is
-    no XLA order to follow, and torch's f32 sum is used.  With ``shard``
-    (a ``LeafShard``) ``x`` is a rank's slice and the mean is the whole
-    leaf's: the slice's sum all-reduced over the leaf's axes."""
+def _sum_and_scale(x, dim=None, shard=None):
+    """``x`` summed in f32 (a bf16 input upcast) over ``dim`` (None: every
+    dim), and the f32 reciprocal of the count: ``jnp.mean`` is their
+    product (XLA's rewrite of the division by a constant).  On the CPU
+    the sum follows XLA:CPU's order (:func:`_xla_cpu_sum`); on the card
+    there is no XLA order to follow, and torch's f32 sum is used.  With
+    ``shard`` (a ``LeafShard``) ``x`` is a rank's slice and the sum is the
+    whole leaf's: the slice's sum all-reduced over the leaf's axes."""
     dims = list(range(x.dim())) if dim is None else [dim % x.dim()]
     x32 = x.float()
     if x.device.type == "cpu" and x.dim():
@@ -228,9 +228,16 @@ def _mean(x, dim=None, keepdim: bool = False, shard=None):
     n = 1
     for d in dims:
         n *= shape[d]
-    m = total * float(np.float32(1.0) / np.float32(n))
+    return total, np.float32(1.0) / np.float32(n)
+
+
+def _mean(x, dim=None, keepdim: bool = False, shard=None):
+    """``jnp.mean`` (:func:`_sum_and_scale`), cast back to the input's
+    dtype."""
+    total, scale = _sum_and_scale(x, dim, shard)
+    m = total * float(scale)
     if keepdim:
-        for d in dims:
+        for d in ([dim % x.dim()] if dim is not None else range(x.dim())):
             m = m.unsqueeze(d)
     return m.to(x.dtype)
 
@@ -267,12 +274,20 @@ def adafactor(learning_rate: float, mesh=None,
             v=tree_map(lambda _, t: t[2], params, trip))
         return (first, EmptyState(), EmptyState(), EmptyState(), EmptyState())
 
-    def ema(decay_t, v, g_sqr):
-        """``decay_t * v + (1 - decay_t) * g_sqr`` in f32 as XLA:CPU
-        computes it (one fused multiply-add over the second product,
-        emulated in f64), cast to v's dtype."""
-        rest = ((1.0 - decay_t) * g_sqr.float()).double()
-        return (decay_t.double() * v.double() + rest).float().to(v.dtype)
+    def ema(decay_t, v, rest):
+        """``decay_t * v + rest`` in f32 as XLA:CPU computes it (one fused
+        multiply-add, emulated in f64), cast to v's dtype."""
+        return (decay_t.double() * v.double()
+                + rest.double()).float().to(v.dtype)
+
+    def mean_term(decay_t, g_sqr, dim, shard):
+        """``(1 - decay_t) * mean(g_sqr, dim)`` in f32.  In f32 XLA folds
+        the mean's reciprocal count into the scalar factor, ``sum * ((1 -
+        decay_t) * (1/n))``; in bf16 the mean is rounded first."""
+        if g_sqr.dtype == torch.float32:
+            total, scale = _sum_and_scale(g_sqr, dim, shard)
+            return total * ((1.0 - decay_t) * float(scale))
+        return (1.0 - decay_t) * _mean(g_sqr, dim, shard=shard).float()
 
     def rsqrt(x):
         """``x ** -0.5``: in f32 through f64 (XLA's f32 ``pow`` is
@@ -287,11 +302,11 @@ def adafactor(learning_rate: float, mesh=None,
         dims = _factored_dims(global_shape_of(p, shard), True,
                               ADAFACTOR_MIN_DIM_SIZE_TO_FACTOR)
         if dims is None:
-            new_v = ema(decay_t, v, g_sqr)
+            new_v = ema(decay_t, v, (1.0 - decay_t) * g_sqr.float())
             return g * rsqrt(new_v), vr, vc, new_v
         d1, d0 = dims
-        new_vr = ema(decay_t, vr, _mean(g_sqr, d0, shard=shard))
-        new_vc = ema(decay_t, vc, _mean(g_sqr, d1, shard=shard))
+        new_vr = ema(decay_t, vr, mean_term(decay_t, g_sqr, d0, shard))
+        new_vc = ema(decay_t, vc, mean_term(decay_t, g_sqr, d1, shard))
         reduced_d1 = d1 - 1 if d1 > d0 else d1
         row_col_mean = _mean(new_vr, reduced_d1, keepdim=True)
         row_factor = rsqrt(new_vr / row_col_mean)
@@ -307,12 +322,20 @@ def adafactor(learning_rate: float, mesh=None,
         rms = torch.sqrt(_mean(u * u, shard=shard)) / _c(1.0, u)
         return u / torch.maximum(_c(1.0, u), rms)
 
-    def by_param_rms(u, p, shard):
-        """``scale_by_param_block_rms()``: ``safe_root_mean_squares``
-        of the param with min_rms 1e-3."""
+    def param_rms(p, shard):
+        """``scale_by_param_block_rms()``'s factor:
+        ``safe_root_mean_squares`` of the param with min_rms 1e-3."""
         rms = torch.sqrt(_mean(p * p, shard=shard))
         floor = _c(1e-3, rms)
-        return u * torch.where(rms <= floor, floor, rms)
+        return torch.where(rms <= floor, floor, rms)
+
+    def scaled(u, p, shard):
+        """The learning rate and the parameter scale on the clipped
+        update.  In f32 XLA folds the two scalars into one factor
+        first, ``u * (rms * lr)``; in bf16 each product rounds in turn."""
+        if u.dtype == torch.float32:
+            return u * (param_rms(p, shard) * learning_rate)
+        return _c(learning_rate, u) * u * param_rms(p, shard)
 
     @torch.no_grad()
     def update_fn(grads, state, params=None):
@@ -326,9 +349,7 @@ def adafactor(learning_rate: float, mesh=None,
         def leaf(g, vr, vc, v, p, shard):
             u, vr, vc, v = scaled_by_factored_rms(g, vr, vc, v, p, decay_t,
                                                   shard)
-            u = by_param_rms(_c(learning_rate, u) * clipped(u, shard), p,
-                             shard)
-            return -u, vr, vc, v
+            return -scaled(clipped(u, shard), p, shard), vr, vc, v
 
         out = tree_map(leaf, grads, fs.v_row, fs.v_col, fs.v, params,
                        leaf_shards(params, mesh, specs))

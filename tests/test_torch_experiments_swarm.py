@@ -4,7 +4,9 @@ JAX package's, on the CPU (``--device cpu``).
 - ``train_lm --mode swarm`` with in-process servers: the JAX script's
   ``run_swarm`` and the twin at the same seed and args (d 32, 2 layers, 4
   experts a layer on 2 servers, seq 16, batch 4, 4 steps), each waiting
-  for every expert reply (``full_quorum``).  The experts
+  for every expert reply (``full_quorum``); the JAX side's servers run as
+  processes of their own (``jax_swarm_servers``), with the in-process
+  servers' seeds, optimizer and batch limit.  The experts
   are crc32-seeded from flax's stream on both sides and the trunks drawn
   from one key, so the runs are one computation in two packages: step 0's
   loss at rtol 2e-5, the later steps' at 1e-4 (the two-level AdamW bar of
@@ -27,7 +29,10 @@ import json
 import os
 import signal
 import socket
+import subprocess
 import sys
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -71,6 +76,70 @@ def full_quorum(monkeypatch):
         waiting = functools.partial(module.SwarmTransformerConfig,
                                     timeout_after_k_min=60.0)
         monkeypatch.setattr(module, "SwarmTransformerConfig", waiting)
+
+
+# the JAX servers' start, every expert alive in the DHT (a loaded host
+# imports JAX and compiles for tens of seconds)
+JAX_SERVERS_START_S = 180.0
+
+
+@pytest.fixture
+def jax_swarm_servers():
+    """The JAX script's in-process swarm (``run_swarm`` without
+    ``--initial-peers``) as processes of their own: a JAX bootstrap DHT
+    node here and ``--n-servers`` JAX server processes hosting the uids
+    ``_uids_for_server`` strides onto them, crc32-seeded with the script's
+    adam and batch limit, every expert alive before it returns the
+    bootstrap's ``host:port``.  In-process JAX servers share the XLA
+    runtime with the JAX trainer, whose backward waits in a host
+    callback; on a loaded host that starves the servers, and backward
+    RPCs time out on the JAX side only."""
+    from learning_at_home_tpu.dht import DHT as JaxDHT
+    from learning_at_home_tpu.utils.subproc import clean_jax_subprocess_env
+
+    args = train_lm.parse_args(SWARM)
+    boot = JaxDHT()
+    client = JaxDHT(initial_peers=[boot.endpoint])
+    env = clean_jax_subprocess_env(REPO)
+    procs = []
+    try:
+        for s in range(args.n_servers):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "learning_at_home_tpu.server",
+                 "--expert-uids",
+                 ",".join(train_lm._uids_for_server(args, s)),
+                 "--hidden-dim", str(args.d_model), "--host", "127.0.0.1",
+                 "--port", "0", "--initial-peers",
+                 f"{boot.endpoint[0]}:{boot.endpoint[1]}",
+                 "--update-period", "5.0", "--optimizer", "adam",
+                 "--lr", str(args.lr), "--max-batch-size", "4096"],
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+            threading.Thread(target=procs[-1].stdout.read,
+                             daemon=True).start()
+        want = args.n_layers * args.experts_per_layer
+        deadline = time.monotonic() + JAX_SERVERS_START_S
+        while True:
+            found = sum(len(client._loop.run(client._get_alive(f"ffn{i}")))
+                        for i in range(args.n_layers))
+            if found == want:
+                break
+            dead = [p.returncode for p in procs if p.poll() is not None]
+            assert not dead and time.monotonic() < deadline, (
+                f"{found}/{want} JAX experts alive, exits {dead}")
+            time.sleep(0.25)
+        yield f"{boot.endpoint[0]}:{boot.endpoint[1]}"
+    finally:
+        for proc in procs:
+            proc.terminate()
+        for proc in procs:
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+        client.shutdown()
+        boot.shutdown()
 
 
 @pytest.fixture
@@ -123,9 +192,11 @@ def live_servers_on(ports) -> list:
 # ---- train_lm --mode swarm ----
 
 def test_swarm_in_process_matches_jax_run_swarm(monkeypatch, capsys,
-                                                full_quorum, keep_sigterm):
+                                                full_quorum, keep_sigterm,
+                                                jax_swarm_servers):
     jmod = jax_script("train_lm")
-    monkeypatch.setattr(sys, "argv", ["train_lm.py", *SWARM, "--steps", "4"])
+    monkeypatch.setattr(sys, "argv", ["train_lm.py", *SWARM, "--steps", "4",
+                                      "--initial-peers", jax_swarm_servers])
     capsys.readouterr()
     jmod.run_swarm(jmod.parse_args())
     want = [e for e in json_lines(capsys.readouterr().out) if "step" in e]

@@ -1,9 +1,10 @@
 """The port's swarm DMoE-Transformer, data pipeline and pipelined trainer
 against the JAX package's, on the CPU.
 
-Twin swarms: a JAX server and a port server host the same 6 ``ffn``
-experts (2 layers, grid (3,), hidden 16), the port's seeded from the JAX
-ones through ``expert_from_jax``, both stepping them with ``sgd(0.0)`` so
+Twin swarms: a JAX server process and a port server host the same 6
+``ffn`` experts (2 layers, grid (3,), hidden 16), crc32-seeded as the JAX
+server seeds them (the port's loaded through ``expert_from_jax``), both
+stepping them with ``sgd(0.0)`` so
 the experts stay put while the trainers under test call them again and
 again.  The JAX model's params (a JAX init) go to the port through
 ``swarm_params_from_jax``.  Held against JAX with ``atol = rtol = 2e-5``
@@ -30,7 +31,9 @@ import itertools
 import os
 import subprocess
 import sys
+import threading
 import time
+import zlib
 
 import jax
 import jax.numpy as jnp
@@ -49,9 +52,6 @@ from learning_at_home_tpu.models import data as jax_data
 from learning_at_home_tpu.models.transformer_swarm import (
     SwarmDMoETransformerLM as JaxSwarmLM,
     SwarmTransformerConfig as JaxSwarmConfig,
-)
-from learning_at_home_tpu.server.server import (
-    background_server as jax_background_server,
 )
 from learning_at_home_tpu.utils.subproc import clean_jax_subprocess_env
 from learning_at_home_tpu_torch import optim
@@ -104,33 +104,100 @@ def _clean_clients():
     jax_reset_client()
 
 
+# the JAX twin server's start, its first reply included (a loaded host
+# imports JAX and compiles for tens of seconds)
+JAX_SERVER_START_S = 180.0
+
+
+def _jax_server_process(uids):
+    """A JAX expert server process hosting ``uids`` (crc32-seeded,
+    ``sgd(0.0)``, no DHT), and its endpoint once it answers ``info``.
+    A process of its own: a JAX server in the process of a JAX client
+    whose backward waits in a host callback can be starved of the XLA
+    runtime it shares with that client, and its replies then time out
+    on a loaded host."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "learning_at_home_tpu.server",
+         "--expert-uids", ",".join(uids), "--hidden-dim", str(D),
+         "--host", "127.0.0.1", "--port", "0", "--no-dht",
+         "--optimizer", "sgd", "--lr", "0.0", "--max-batch-size", "256"],
+        env=clean_jax_subprocess_env(REPO), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    lines = []
+
+    def pump():  # its output, read as it comes: a full pipe never blocks it
+        for line in proc.stdout:
+            lines.append(line)
+
+    threading.Thread(target=pump, daemon=True).start()
+    deadline = time.monotonic() + JAX_SERVER_START_S
+    endpoint = None
+    try:
+        while True:
+            if endpoint is None:
+                for line in list(lines):
+                    if line.startswith("serving "):
+                        host, port = line.split(" on ")[1].split()[0].rsplit(
+                            ":", 1)
+                        endpoint = (host, int(port))
+            if endpoint is not None:
+                try:
+                    JaxRemoteExpert(uids[0], endpoint).info()
+                    break
+                except Exception:
+                    pass
+            if proc.poll() is not None or time.monotonic() > deadline:
+                raise AssertionError("the JAX server did not answer: "
+                                     + "".join(lines)[-3000:])
+            time.sleep(0.5)
+    except BaseException:
+        proc.kill()
+        proc.wait(timeout=30)
+        raise
+    return proc, endpoint
+
+
 @pytest.fixture(scope="module")
 def twins():
-    """(JAX model, port model, JAX params, port params, port server)."""
+    """(JAX model, port model, JAX params, port params, port server).
+    The JAX twin server is a process of its own (``_jax_server_process``);
+    the port server, here, is loaded with the same crc32-seeded experts."""
+    from learning_at_home_tpu.models import make_expert
+
     uids = _uids(TWIN)
-    with jax_background_server(
-            num_experts=0, expert_uids=uids, hidden_dim=D,
-            optimizer=optax.sgd(0.0), max_batch_size=256) as (jep, jsrv), \
-            background_server(
+    jproc, jep = _jax_server_process(uids)
+    try:
+        with background_server(
                 num_experts=0, expert_uids=uids, hidden_dim=D,
                 optimizer=optim.sgd(0.0), max_batch_size=256,
                 device="cpu") as (tep, tsrv):
-        for uid in uids:
-            params, _ = expert_from_jax(
-                jsrv.experts[uid].state_dict()["params"], device="cpu")
-            backend = tsrv.experts[uid]
-            backend.load_state_dict({"params": params,
-                                     "opt_state": backend.opt_state,
-                                     "update_count": 0})
-        jmodel = JaxSwarmLM(JaxSwarmConfig(**_cfg_kw(TWIN)),
-                            JaxSource({u: jep for u in uids}))
-        tcfg = SwarmTransformerConfig(**_cfg_kw(TWIN))
-        tmodel = SwarmDMoETransformerLM(
-            tcfg, StaticExpertSource({u: tep for u in uids}))
-        jparams = jmodel.init_params(jax.random.PRNGKey(0))
-        np_params = jax.tree_util.tree_map(np.asarray, jparams)
-        tparams = swarm_params_from_jax(np_params, tcfg, device="cpu")
-        yield jmodel, tmodel, jparams, tparams, tsrv
+            for uid in uids:
+                _, jax_params = make_expert(
+                    "ffn", D,
+                    jax.random.PRNGKey(zlib.crc32(uid.encode()) & 0x7FFFFFFF))
+                params, _ = expert_from_jax(
+                    jax.tree_util.tree_map(np.asarray, jax_params),
+                    device="cpu")
+                backend = tsrv.experts[uid]
+                backend.load_state_dict({"params": params,
+                                         "opt_state": backend.opt_state,
+                                         "update_count": 0})
+            jmodel = JaxSwarmLM(JaxSwarmConfig(**_cfg_kw(TWIN)),
+                                JaxSource({u: jep for u in uids}))
+            tcfg = SwarmTransformerConfig(**_cfg_kw(TWIN))
+            tmodel = SwarmDMoETransformerLM(
+                tcfg, StaticExpertSource({u: tep for u in uids}))
+            jparams = jmodel.init_params(jax.random.PRNGKey(0))
+            np_params = jax.tree_util.tree_map(np.asarray, jparams)
+            tparams = swarm_params_from_jax(np_params, tcfg, device="cpu")
+            yield jmodel, tmodel, jparams, tparams, tsrv
+    finally:
+        jproc.terminate()
+        try:
+            jproc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            jproc.kill()
+            jproc.wait(timeout=30)
 
 
 def _np(tree):

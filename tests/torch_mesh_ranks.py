@@ -468,3 +468,91 @@ def bucketed_reduce(bucket_bytes: int):
         return [t.float().numpy().copy() for t in ts]
     finally:
         comm.BUCKET_BYTES = old
+
+
+# ---- sharded checkpoints ----
+
+def _ckpt_setup(axes, kw, opt_name, seed):
+    m = model(axes, kw)
+    p = m.init_params(prng.PRNGKey(seed))
+    specs = m.param_specs(p)
+    opt = make_optimizer(opt_name, 1e-3, m.mesh, specs)
+    return m, p, specs, opt, m.init_opt_state(opt, p)
+
+
+def _state_specs(m, p, state):
+    from learning_at_home_tpu_torch.parallel.mesh import opt_state_shardings
+
+    return opt_state_shardings(state, m.param_specs(p), p)
+
+
+def ckpt_round_trip(root, axes, kw, opt_name, ids, tgt):
+    """One step from ``init_params(PRNGKey(0))`` on the rank's rows, a
+    save at step 1 (``TrainCheckpointer`` on the mesh), then a fresh model
+    drawn from PRNGKey(99) restoring it.  Returns the saved slices, the
+    specs, whether every restored slice equals its saved one bit for bit,
+    and the next step's loss from the restored and from the uninterrupted
+    state."""
+    from learning_at_home_tpu_torch.utils.checkpoint import TrainCheckpointer
+
+    m, p, specs, opt, state = _ckpt_setup(axes, kw, opt_name, 0)
+    step = m.make_train_step(opt)
+    ids = m.local_batch(torch.from_numpy(np.asarray(ids)))
+    tgt = m.local_batch(torch.from_numpy(np.asarray(tgt)))
+    p, state, _, _ = step(p, state, ids, tgt)
+    ck = TrainCheckpointer(root, keep_last=2, mesh=m.mesh, specs=specs)
+    ck.save(1, p, state)
+    saved = (to_np(p), to_np(state))
+    m2, p2, _, opt2, state2 = _ckpt_setup(axes, kw, opt_name, 99)
+    restored = TrainCheckpointer(root, mesh=m2.mesh,
+                                 specs=m2.param_specs(p2)).restore_latest(
+        p2, state2)
+    n, rp, rs = restored
+    same = [a.dtype == b.dtype and a.shape == b.shape and
+            a.tobytes() == b.tobytes()
+            for a, b in zip(tree_leaves(saved[0]) + tree_leaves(saved[1]),
+                            tree_leaves(to_np(rp)) + tree_leaves(to_np(rs)))]
+    step2 = m2.make_train_step(opt2)
+    _, _, loss_resumed, _ = step2(rp, rs, ids, tgt)
+    _, _, loss_orig, _ = step(p, state, ids, tgt)
+    return {"step": n, "params": saved[0], "opt_state": saved[1],
+            "param_specs": specs, "state_specs": _state_specs(m, p, state),
+            "same": same, "loss_resumed": float(loss_resumed),
+            "loss_orig": float(loss_orig)}
+
+
+def ckpt_restore(root, axes, kw, opt_name):
+    """The newest complete step of ``root`` restored onto this rank's mesh
+    ``axes`` (templates drawn from PRNGKey(7)): the rank's slices and
+    their specs."""
+    from learning_at_home_tpu_torch.utils.checkpoint import TrainCheckpointer
+
+    m, p, specs, _, state = _ckpt_setup(axes, kw, opt_name, 7)
+    n, rp, rs = TrainCheckpointer(root, mesh=m.mesh,
+                                  specs=specs).restore_latest(p, state)
+    return {"step": n, "params": to_np(rp), "opt_state": to_np(rs),
+            "param_specs": specs, "state_specs": _state_specs(m, p, state)}
+
+
+def ckpt_dies_before_the_marker(root, axes, kw, dead_rank):
+    """Every rank saves step 1 of its init on the mesh, but ``dead_rank``
+    writes its params item and then dies, before its optimizer state,
+    the barrier and the marker."""
+    import os
+
+    from learning_at_home_tpu_torch.utils import checkpoint
+
+    m, p, specs, _, state = _ckpt_setup(axes, kw, "adamw", 0)
+    if m.mesh.rank == dead_rank:
+        checkpoint.save_pytree(root, 1, "params", p, m.mesh, specs)
+        os._exit(1)
+    checkpoint.TrainCheckpointer(root, mesh=m.mesh, specs=specs).save(
+        1, p, state)
+
+
+def decode_gap_main(argv):
+    """The port's ``decode_gap_eval`` on this rank (its process group is
+    the job's); returns what ``main`` returns."""
+    from learning_at_home_tpu_torch.experiments import decode_gap_eval
+
+    return decode_gap_eval.main(list(argv))
