@@ -131,6 +131,10 @@ Phases, each of which asserts (none catches its own failure):
                two workers.  The loss must fall; backward RPCs acked <= the
                servers' summed update_count <= sent (their stats RPC); a
                server process that exits fails the phase with its output.
+               After the steps, ``python -m learning_at_home_tpu_torch.
+               tools.lah_top --once --json`` joined through the
+               bootstrap node must show one row per server process (its
+               RPC endpoint) with a non-zero expert update count on each.
                Prints, beside the card's name and power limit, the step
                time and tokens/s, layer 0's dispatch p50, the replies each
                layer's quorum dropped, the trainer's and each server's
@@ -300,6 +304,30 @@ Phases, each of which asserts (none catches its own failure):
                --nodes 200 ... --check`` prints the JAX runner's report
                byte for byte (its sha256) with its verdict.
 
+19. operator tools -- the tools of ``learning_at_home_tpu_torch/tools``
+               and ``experiments/build_corpus``, each a process started
+               with the others: (a) ``lah_lint --json`` over the port: 0
+               unsuppressed findings; ``schema.extract`` over the port (in
+               this process): WIRE_HANDLERS handler (family, module, op)
+               entries, none unresolved; (b) ``lah_verify --smoke
+               --seeded-bugs --json``: no violation, both seeded races
+               found, deterministically; (c) a worker with the port's
+               sanitizer armed runs ``lah_fuzz --smoke`` (the expert and
+               gateway hosts on the card; the averaging and DHT hosts on
+               the host), then ``--smoke --device cpu`` of the expert and
+               gateway families: each family >= 220 frames, no crash,
+               hang, sanitizer violation or leaked thread, the card
+               server's device printed, and every frame's outcome class
+               (error reply, result, close) on the card the CPU host's;
+               (d) ``lah_rebalance --plan`` on PLACEMENT_FIXTURE in two
+               processes: the same bytes, moves, a lower cost; (e)
+               ``build_corpus`` twice: the same sha256, non-zero bytes
+               (the whole script starts both runs with phase 18, on the
+               host beside it: they are the phase's longest tool).
+               Prints each tool's seconds and the fuzz frames a second.
+               No kernel of the kernels line is on this path (0
+               launches, this process's and the fuzz worker's).
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA card or
 without the repository's package beside it.
@@ -314,7 +342,8 @@ phase 15 on key-seeded params, then the twins' check;
 ``--experiments-only`` runs phases 1, 2 and 16 ((d) on phase 13's servers
 and key-seeded params; no kernels line); ``--mesh-only`` runs phases 1, 2
 and 17 (no kernels line); ``--ckpt-only`` runs phases 1, 2 and 18 (no
-kernels line).
+kernels line); ``--tools-only`` runs phases 1 and 19 (no kernel is built,
+no kernels line).
 """
 
 from __future__ import annotations
@@ -2053,6 +2082,34 @@ def swarm_lm_busy(run, card: str):
     return out
 
 
+def lah_top_once(boot, endpoints, card: str) -> None:
+    """Phase 13's operator view: ``lah_top --once --json`` joined through
+    the bootstrap DHT node must show one row per server process (its RPC
+    endpoint) and a non-zero expert update count on each."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "learning_at_home_tpu_torch.tools.lah_top",
+         "--once", "--json", "--initial-peers",
+         f"{boot.endpoint[0]}:{boot.endpoint[1]}"],
+        cwd=root, env=dict(os.environ, PYTHONPATH=root), capture_output=True,
+        text=True, timeout=120)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
+    doc = json.loads(r.stdout.splitlines()[-1])
+    rows = {tuple(p["snapshot"]["endpoint"]): p for p in doc["peers"]
+            if p["role"] == "server" and p["snapshot"] is not None}
+    assert set(rows) == {tuple(ep) for ep in endpoints}, (
+        sorted(rows), endpoints)
+    updates = {ep: sum(p["snapshot"]["experts"].values())
+               for ep, p in sorted(rows.items())}
+    print(f"  lah_top --once --json: {len(doc['peers'])} peers, one row per "
+          f"server process ({len(rows)}), health "
+          f"{sorted({p['health'] for p in rows.values()})}, expert updates "
+          f"{', '.join(str(u) for u in updates.values())} "
+          f"({time.perf_counter() - t0:.1f} s) [{card}]")
+    assert all(u > 0 for u in updates.values()), updates
+
+
 def swarm_lm(counters, card: str, train: bool = True,
              arms: bool = True) -> tuple[dict, dict]:
     """Phase 13 (see the module docstring), then phase 15 on its servers
@@ -2238,6 +2295,7 @@ def swarm_lm(counters, card: str, train: bool = True,
         print(f"  since then (the pipelined and profiled steps): acked "
               f"{acked}, servers' updates {updates} <= sent {sent} [{card}]")
         assert 0 < updates <= sent, (acked, updates, sent)
+        lah_top_once(boot, endpoints, card)
         peaks = [st["metrics"]["collected"].get(
             "lah_server_device_peak_bytes", 0) for st in server_stats(endpoints)]
         print(f"  trainer peak card memory {peak / 1e9:.3f} GB; servers' "
@@ -3554,6 +3612,276 @@ def ckpt_phase(counters, card: str) -> dict:
     }
 
 
+# ---- phase 19: the operator tools ----
+
+TOOLS = "learning_at_home_tpu_torch.tools"
+# the placement gate's skewed two-node fixture: two co-activation clusters
+# split across the nodes and a slow measured link, so the solver must
+# consolidate (a copy of the JAX repo's tools/collect_gate.py fixture)
+PLACEMENT_FIXTURE = {
+    "experts": {
+        "expert.0": "10.0.0.1:31330", "expert.1": "10.0.0.2:31330",
+        "expert.2": "10.0.0.1:31330", "expert.3": "10.0.0.2:31330",
+        "expert.4": "10.0.0.1:31330", "expert.5": "10.0.0.2:31330",
+    },
+    "activations": {
+        "expert.0": 900, "expert.1": 850, "expert.2": 800,
+        "expert.3": 120, "expert.4": 100, "expert.5": 80,
+    },
+    "coact": {
+        "expert.0|expert.1": 700, "expert.1|expert.2": 650,
+        "expert.0|expert.2": 600, "expert.3|expert.4": 90,
+        "expert.4|expert.5": 80,
+    },
+    "links": {
+        "10.0.0.1:31330": {"10.0.0.2:31330": [0.04, 5.0e7]},
+        "trainer-a": {
+            "10.0.0.1:31330": [0.002, 2.0e8],
+            "10.0.0.2:31330": [0.05, 4.0e7],
+        },
+    },
+    "sources": {"trainer-a": 1.0},
+    "bytes_per_dispatch": 1.5e6,
+}
+TOOLS_TIMEOUT_S = 300  # each tool process; the phase takes ~40 s
+WIRE_HANDLERS = 20  # (family, module, op) entries of the wire IR
+
+
+def kernel_counters() -> dict:
+    """Each wrapper's launch counter (the forward's lives on
+    flash_attention)."""
+    return {"flash_attn_fwd": fa.flash_attention,
+            "flash_attn_bwd_dkv": fa.flash_attention_dkv,
+            "flash_attn_bwd_dq": fa.flash_attention_dq,
+            "fused_ce_fwd": fce.ce_forward, "fused_ce_dx": fce.ce_dx,
+            "fused_ce_dhead": fce.ce_dhead,
+            "token_dispatch": td.dispatch_tokens_kernel}
+
+
+def fuzz_worker() -> None:
+    """Phase 19 (c) in a process of its own, with the port's sanitizer
+    armed (``LAH_SANITIZE=1`` in its environment): ``lah_fuzz --smoke``
+    with the expert and gateway hosts on the card, then the same two
+    families hosted on the CPU; prints one JSON line of the reports (each
+    case's outcome in order) and this process's kernel launches."""
+    from learning_at_home_tpu_torch.tools import lah_fuzz
+    from learning_at_home_tpu_torch.utils import sanitizer
+
+    assert sanitizer.enabled()
+    counters = kernel_counters()
+    reset_counts(counters)
+    reports = {}
+    run_family = lah_fuzz.run_family
+
+    def kept(family, cases, verbose=False, device=None):
+        t0 = time.perf_counter()
+        rep = run_family(family, cases, verbose=verbose, device=device)
+        rep["wall_s"] = time.perf_counter() - t0  # host up, frames, down
+        reports[run].append(rep)
+        return rep
+
+    lah_fuzz.run_family = kept
+    rcs = []
+    with contextlib.redirect_stdout(sys.stderr):  # the CLIs' own lines
+        for run, argv in (("card", ["--smoke"]),
+                          ("cpu", ["--smoke", "--device", "cpu", *(
+                              arg for fam in lah_fuzz.DEVICE_FAMILIES
+                              for arg in ("--family", fam))])):
+            reports[run] = []
+            rcs.append(lah_fuzz.main(argv))
+    print(json.dumps({"rc": rcs, "reports": reports,
+                      "launches": read_counts(counters)}))
+
+
+def tool_process(name: str, argv: list, env: dict | None = None):
+    """``python argv`` from the checkout's root with its output in
+    ``build/tools/<name>.out`` and ``.err``; (process, out path, err path,
+    start time)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(root, "build", "tools")
+    os.makedirs(out_dir, exist_ok=True)
+    out, err = (os.path.join(out_dir, f"{name}.{s}") for s in ("out", "err"))
+    with open(out, "w") as fo, open(err, "w") as fe:
+        proc = subprocess.Popen(
+            [sys.executable, *argv], cwd=root, stdout=fo, stderr=fe,
+            env=dict(os.environ, PYTHONPATH=root, **(env or {})))
+    return proc, out, err, time.time()
+
+
+def start_corpus() -> dict:
+    """Phase 19 (e)'s two ``build_corpus`` runs, started now (the whole
+    script starts them with phase 18, on the host beside its ranks)."""
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "tools")
+    return {f"build_corpus {i}": tool_process(f"corpus{i}", [
+        "-m", "learning_at_home_tpu_torch.experiments.build_corpus",
+        "--out", os.path.join(out_dir, f"corpus{i}.txt")]) for i in (1, 2)}
+
+
+def stop_tools(jobs: dict) -> None:
+    """Kill whatever of the tool processes ``jobs`` still runs."""
+    for proc, _, _, _ in jobs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+
+
+def tool_results(jobs: dict) -> dict:
+    """name -> (exit code, standard output, seconds from its start to its
+    exit) of tool processes; one still running TOOLS_TIMEOUT_S after its
+    start fails the phase."""
+    ended = {}
+    while len(ended) < len(jobs):
+        for name, (proc, out, err, t0) in jobs.items():
+            if name not in ended and proc.poll() is not None:
+                ended[name] = time.time() - t0
+        late = [n for n, job in jobs.items()
+                if n not in ended and time.time() - job[3] > TOOLS_TIMEOUT_S]
+        assert not late, f"{late} ran past {TOOLS_TIMEOUT_S} s"
+        time.sleep(0.05)
+    done = {}
+    for name, (proc, out, err, _) in jobs.items():
+        with open(out, errors="replace") as f:
+            text = f.read()
+        if proc.returncode != 0:
+            with open(err, errors="replace") as f:
+                print(f"  {name} exited {proc.returncode}; its errors:\n"
+                      f"{f.read()[-4000:]}")
+        done[name] = (proc.returncode, text, ended[name])
+    return done
+
+
+def tools_phase(counters, card: str, corpus: dict | None = None) -> dict:
+    """Phase 19 (see the module docstring): every tool runs as a process
+    of its own, all started together but ``corpus``, build_corpus's runs
+    when :func:`start_corpus` started them earlier; returns the kernels'
+    launch counts (this process's and the card fuzz worker's: none is
+    expected)."""
+    from learning_at_home_tpu_torch.analysis import schema
+    from learning_at_home_tpu_torch.tools import lah_fuzz
+
+    t_phase = time.time()
+    reset_counts(counters)
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(root, "build", "tools")
+    os.makedirs(out_dir, exist_ok=True)
+    fixture = os.path.join(out_dir, "placement_fixture.json")
+    with open(fixture, "w") as f:
+        json.dump(PLACEMENT_FIXTURE, f)
+    jobs = {
+        **(corpus or start_corpus()),
+        "lah_lint": tool_process("lint", ["-m", f"{TOOLS}.lah_lint",
+                                          "--json"]),
+        "lah_verify": tool_process("verify", [
+            "-m", f"{TOOLS}.lah_verify", "--smoke", "--seeded-bugs",
+            "--json"]),
+        **{f"lah_rebalance --plan {i}": tool_process(f"plan{i}", [
+            "-m", f"{TOOLS}.lah_rebalance", "--plan", fixture, "--seed",
+            "0"]) for i in (1, 2)},
+        "lah_fuzz": tool_process("fuzz", [
+            "-c", "import chip_smoke; chip_smoke.fuzz_worker()"],
+            env={"LAH_SANITIZE": "1"}),
+    }
+    try:
+        # (a) the wire IR, here while the tools run
+        t0 = time.time()
+        ir = schema.extract([lah_fuzz.PKG])
+        entries = {(h.family, os.path.basename(h.path), op)
+                   for h in ir.handlers for op in h.ops}
+        print(f"  (a) schema.extract over the port: {len(entries)} handler "
+              f"(family, module, op) entries, {len(ir.senders)} sender "
+              f"sites, {len(ir.unresolved)} unresolved "
+              f"({time.time() - t0:.1f} s)")
+        assert len(entries) == WIRE_HANDLERS and not ir.unresolved, entries
+        done = tool_results(jobs)
+    finally:
+        stop_tools(jobs)
+
+    rc, out, s = done["lah_lint"]
+    findings = json.loads(out)
+    active = [f for f in findings if not f["suppressed"]]
+    print(f"  (a) lah_lint over the port: {len(active)} findings, "
+          f"{len(findings) - len(active)} suppressed, exit {rc} ({s:.1f} s)")
+    assert rc == 0 and not active, active
+
+    rc, out, s = done["lah_verify"]
+    report = json.loads(out)
+    for w in report["worlds"]:
+        print(f"      {w['world']:18s} {w['schedules_run']:4d} schedules "
+              f"({w['schedules_pruned']} pruned), {w['violations']} "
+              f"violation(s)")
+    sb = report["seeded_bugs"]
+    print(f"  (b) lah_verify --smoke --seeded-bugs: "
+          f"{len(report['violations'])} violations across "
+          f"{report['invariants_checked']} invariants; stale-prefill "
+          f"{'FOUND' if sb['stale_prefill_found'] else 'MISSED'}, "
+          f"mutual-preemption "
+          f"{'FOUND' if sb['mutual_preemption_found'] else 'MISSED'}, "
+          f"deterministic {sb['deterministic']}; exit {rc} ({s:.1f} s)")
+    assert rc == 0 and report["clean"] and not report["violations"]
+    assert sb["ok"] and sb["stale_prefill_found"] \
+        and sb["mutual_preemption_found"], sb
+
+    rc, out, s = done["lah_fuzz"]
+    fuzz = json.loads(out.splitlines()[-1])
+    assert fuzz["rc"] == [0, 0], fuzz["rc"]
+    cpu = {rep["family"]: rep for rep in fuzz["reports"]["cpu"]}
+    for rep in fuzz["reports"]["card"]:
+        fam = rep["family"]
+        print(f"  (c) lah_fuzz --smoke {fam}: {rep['frames']} frames, "
+              f"{rep['outcomes']}, sanitizer "
+              f"{rep['sanitizer_violations']}, host {rep['device']}, "
+              f"{rep['frames'] / rep['wall_s']:.1f} frames/s "
+              f"({rep['wall_s']:.3f} s with the host's start and stop) "
+              f"[{card}]")
+        assert not rep["failures"], rep["failures"]
+        assert rep["frames"] >= lah_fuzz.MIN_PER_FAMILY
+        assert rep["outcomes"]["noreply"] == 0
+        assert rep["sanitizer_violations"] == 0 and not rep["quiesce_leaks"]
+        if fam in lah_fuzz.DEVICE_FAMILIES:
+            assert rep["device"].startswith("cuda"), rep["device"]
+            assert cpu[fam]["device"] == "cpu" and not cpu[fam]["failures"]
+            differ = [(a, b) for a, b in zip(rep["case_outcomes"],
+                                             cpu[fam]["case_outcomes"])
+                      if a != b]
+            print(f"      {fam} on the card against the CPU host: "
+                  f"{len(rep['case_outcomes']) - len(differ)} of "
+                  f"{len(rep['case_outcomes'])} frames the same outcome")
+            assert rep["case_outcomes"] == cpu[fam]["case_outcomes"], \
+                differ[:5]
+    assert {rep["family"] for rep in fuzz["reports"]["card"]} == set(
+        lah_fuzz.HOSTS)
+    print(f"      lah_fuzz worker: {s:.1f} s")
+
+    plans = [done[f"lah_rebalance --plan {i}"] for i in (1, 2)]
+    plan = json.loads(plans[0][1])
+    print(f"  (d) lah_rebalance --plan: {len(plan['moves'])} moves, cost "
+          f"{plan['cost_before']} -> {plan['cost_after']}; the two "
+          f"processes' bytes "
+          f"{'equal' if plans[0][1] == plans[1][1] else 'DIFFER'} "
+          f"({max(p[2] for p in plans):.1f} s)")
+    assert [p[0] for p in plans] == [0, 0] and plans[0][1] == plans[1][1]
+    assert plan["moves"] and plan["cost_after"] < plan["cost_before"]
+
+    runs = [done[f"build_corpus {i}"] for i in (1, 2)]
+    digests = []
+    for i in (1, 2):
+        with open(os.path.join(out_dir, f"corpus{i}.txt"), "rb") as f:
+            data = f.read()
+        digests.append((hashlib.sha256(data).hexdigest(), len(data)))
+    print(f"  (e) build_corpus twice: {runs[0][1].strip()}; sha256 "
+          f"{digests[0][0]} and {digests[1][0]}, {digests[0][1]} bytes "
+          f"({max(r[2] for r in runs):.1f} s)")
+    assert [r[0] for r in runs] == [0, 0]
+    assert digests[0] == digests[1] and digests[0][1] > 0
+
+    launches = {k: v + fuzz["launches"][k]
+                for k, v in read_counts(counters).items()}
+    print(f"  kernel launches in phase 19: {launches}")
+    print(f"tools phase: {time.time() - t_phase:.1f} s [{card}]")
+    return {"operator tools (phase 19)": launches}
+
+
 # ---- phase 14: the elastic swarm ----
 
 
@@ -4269,6 +4597,9 @@ def main() -> int:
                     help="phases 1, 2 and 18 only (sharded checkpoints and "
                          "resume on a mesh, decode_gap_eval on the expert "
                          "mesh, the macro-sim; no kernels line)")
+    ap.add_argument("--tools-only", action="store_true",
+                    help="phases 1 and 19 only (the operator tools; no "
+                         "kernel is built, no kernels line)")
     args = ap.parse_args()
     phase("device")
     if not torch.cuda.is_available():
@@ -4276,16 +4607,15 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    # each wrapper's launch counter (the forward's lives on flash_attention)
-    counters = {"flash_attn_fwd": fa.flash_attention,
-                "flash_attn_bwd_dkv": fa.flash_attention_dkv,
-                "flash_attn_bwd_dq": fa.flash_attention_dq,
-                "fused_ce_fwd": fce.ce_forward, "fused_ce_dx": fce.ce_dx,
-                "fused_ce_dhead": fce.ce_dhead,
-                "token_dispatch": td.dispatch_tokens_kernel}
+    counters = kernel_counters()
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}")
+    if args.tools_only:
+        phase("operator tools")
+        tools_phase(counters, card)
+        print(card)
+        return 0
     if args.swarm_lm_only or args.gateway_only:
         phase("swarm LM swarm-dmoe-4l-256e-d512")
         swarm_lm(counters, card, train=not args.gateway_only)
@@ -4384,7 +4714,15 @@ def main() -> int:
     launches.update(mesh_phase(card))
 
     phase("checkpoints")
-    launches.update(ckpt_phase(counters, card))
+    corpus = start_corpus()  # phase 19 (e), on the host beside phase 18
+    try:
+        launches.update(ckpt_phase(counters, card))
+    except BaseException:
+        stop_tools(corpus)
+        raise
+
+    phase("operator tools")
+    launches.update(tools_phase(counters, card, corpus))
 
     kernels = []
     for name, (source, replaces, shape) in KERNELS.items():

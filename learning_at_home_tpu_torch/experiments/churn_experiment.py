@@ -36,6 +36,7 @@ Examples:
 
 import argparse
 import json
+import logging
 import math
 import os
 import signal
@@ -46,6 +47,7 @@ import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
+logger = logging.getLogger(__name__)
 
 
 # Profile presets: ``fast`` is the CI smoke; ``sustained`` is the
@@ -345,8 +347,10 @@ def main(argv=None) -> int:
                             comp_gate[0] = averaged
                     except AveragingFailed:
                         pass
-                    except Exception:
-                        pass  # churn teardown races are expected here
+                    except Exception as e:
+                        # churn teardown races are expected here
+                        logger.debug("companion round skipped: %s: %s",
+                                     type(e).__name__, e)
                     comp_stop.wait(0.1)
 
             threading.Thread(

@@ -198,6 +198,8 @@ class FramePump:
     def __del__(self):  # best-effort; explicit shutdown preferred
         try:
             self.shutdown()
-        # finalizer: logging may already be torn down at interpreter exit
+        # lah-lint: ignore[R6] finalizer: logging machinery may already
+        # be torn down at interpreter shutdown — swallow is the only
+        # safe behavior in __del__
         except Exception:
             pass

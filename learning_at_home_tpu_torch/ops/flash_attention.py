@@ -262,13 +262,19 @@ def bwd_launch_geometry(kernel: str, b: int, s: int, h: int):
     return (-(-s // BWD_ROWS), h, b), BWD_THREADS, smem
 
 
-def _launch(library: str, symbol: str, q: torch.Tensor, args) -> None:
-    """Call ``symbol`` of kernel library ``library`` (built at first use)
-    with ``args`` (ctypes values), the scale and the current stream.
-    Raises if the launch was refused."""
+def _kernels(library: str):
+    """Kernel library ``library`` (built at first use); its entry points
+    are its attributes, as in ``fused_ce.py``."""
     from learning_at_home_tpu_torch.ops.build import load_library
 
-    fn = getattr(load_library(library), symbol)
+    return load_library(library)
+
+
+def _launch(fn, q: torch.Tensor, args) -> None:
+    """Call the kernel entry point ``fn`` with ``args`` (ctypes values),
+    the scale and the current stream.  Raises if the launch was
+    refused."""
+    symbol = fn.__name__
     if fn.argtypes is None:
         fn.argtypes = [type(a) for a in args] + [ctypes.c_float,
                                                  ctypes.c_void_p]
@@ -344,8 +350,8 @@ def flash_attention_fwd(q, k, v, with_lse: bool = True):
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
            if with_lse else None)
     if o.numel():
-        _launch("flash_attn_fwd", "lah_flash_attn_fwd_bf16", q,
-                _fwd_args(q, k, v, o, lse))
+        args = _fwd_args(q, k, v, o, lse)
+        _launch(_kernels("flash_attn_fwd").lah_flash_attn_fwd_bf16, q, args)
         flash_attention.launches += 1
     return o, lse
 
@@ -361,8 +367,9 @@ def flash_attention_dkv(q, k, v, do, lse, di):
     _check_stats(q, lse, di)
     dk, dv = torch.empty_like(q), torch.empty_like(q)
     if q.numel():
-        _launch("flash_attn_bwd", "lah_flash_attn_bwd_dkv_bf16", q,
-                _bwd_args("dkv", q, k, v, do, lse, di, dk, dv))
+        args = _bwd_args("dkv", q, k, v, do, lse, di, dk, dv)
+        _launch(_kernels("flash_attn_bwd").lah_flash_attn_bwd_dkv_bf16, q,
+                args)
         flash_attention_dkv.launches += 1
     return dk, dv
 
@@ -377,8 +384,9 @@ def flash_attention_dq(q, k, v, do, lse, di):
     _check_stats(q, lse, di)
     dq = torch.empty_like(q)
     if q.numel():
-        _launch("flash_attn_bwd", "lah_flash_attn_bwd_dq_bf16", q,
-                _bwd_args("dq", q, k, v, do, lse, di, dq))
+        args = _bwd_args("dq", q, k, v, do, lse, di, dq)
+        _launch(_kernels("flash_attn_bwd").lah_flash_attn_bwd_dq_bf16, q,
+                args)
         flash_attention_dq.launches += 1
     return dq
 

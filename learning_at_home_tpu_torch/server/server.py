@@ -509,8 +509,9 @@ class Server:
             if prev is not None:
                 try:
                     await asyncio.wrap_future(prev)
-                # ordering barrier only: the prior request's failure was
-                # already logged (and replied) where it happened
+                # lah-lint: ignore[R6] ordering barrier only: the prior
+                # request's failure was already logged (and replied) where
+                # it happened; this await exists to sequence replies
                 except BaseException:
                     pass
             # the pump's C side frames replies itself: join the vectored

@@ -5,8 +5,9 @@ The port's copy of ``learning_at_home_tpu/sim/serving.py``.
 The REAL code under simulation (never reimplemented here):
 
 - ``gateway.scheduler.SlotScheduler`` — driven by calling
-  ``_iteration()`` directly (no decode thread); slots/pages bookkeeping
-  is the real ``PagedKVCache`` via :class:`_FakePagedDecoder`;
+  ``_iteration()`` directly, the same no-decode-thread pattern
+  ``analysis/verify.py`` established; slots/pages bookkeeping is the
+  real ``PagedKVCache`` via verify's ``_FakePagedDecoder``;
 - ``gateway.admission.AdmissionController`` — every arrival passes
   through ``admit()``; the worst-queue snapshot refreshes inline via
   ``maybe_refresh()`` on the virtual clock;
@@ -380,230 +381,6 @@ class TelemetryMirror:
             self._task = None
 
 
-class _FakePagedDecoder:
-    """Token-arithmetic stand-in for SwarmKVDecoder backed by a REAL
-    :class:`PagedKVCache`: all slot/page bookkeeping is the production
-    code path (alloc, map_shared, refcounts, prefix registry, release),
-    only the trunk math is replaced by deterministic token arithmetic
-    (the pools are small CPU tensors).  The port's copy of the class in
-    ``learning_at_home_tpu/analysis/verify.py``.  Mirrors the
-    real decoder's contract exactly, including raising on a
-    ``prefill_step`` against a slot that is not mid-prefill (the call
-    pattern only a stale scheduler snapshot produces)."""
-
-    supports_chunked_prefill = True
-
-    def __init__(self, *, max_slots=2, seq_len=8, page_len=2,
-                 num_pages=5, prefix_cache=False):
-        import numpy as np
-        import torch
-
-        from learning_at_home_tpu_torch.models.kv_pages import PagedKVCache
-
-        self.max_slots = int(max_slots)
-        self.seq_len = int(seq_len)
-        self.kv = PagedKVCache(
-            n_layers=1, n_heads=1, head_dim=1, dtype=torch.float32,
-            max_slots=max_slots, seq_len=seq_len, page_len=page_len,
-            num_pages=num_pages, enable_prefix_cache=prefix_cache,
-            device="cpu",
-        )
-        self._np = np
-        self.pos = np.zeros(self.max_slots, np.int32)
-        self.live = np.zeros(self.max_slots, bool)
-        self.prefilling = np.zeros(self.max_slots, bool)
-        self._prefill_prompt: list = [None] * self.max_slots
-        self.stream_ids: list = [None] * self.max_slots
-        self.prefills_total = 0
-        self.prefill_chunks_total = 0
-        self.decode_steps_total = 0
-        self.verify_rounds_total = 0
-        self.last_verify: list = []
-
-    # slot bookkeeping — same shapes as SwarmKVDecoder
-    def free_slots(self):
-        return [
-            i for i in range(self.max_slots)
-            if not self.live[i] and not self.prefilling[i]
-        ]
-
-    def live_slots(self):
-        return [(i, self.stream_ids[i]) for i in range(self.max_slots)
-                if self.live[i]]
-
-    def prefilling_slots(self):
-        return [(i, self.stream_ids[i]) for i in range(self.max_slots)
-                if self.prefilling[i]]
-
-    def busy_slots(self):
-        return [i for i in range(self.max_slots)
-                if self.live[i] or self.prefilling[i]]
-
-    def at_capacity(self, slot):
-        return int(self.pos[slot]) >= self.seq_len
-
-    def evict(self, slot):
-        self.live[slot] = False
-        self.prefilling[slot] = False
-        self._prefill_prompt[slot] = None
-        self.stream_ids[slot] = None
-        self.pos[slot] = 0
-        self.kv.release_slot(slot)
-
-    def pages_needed(self, prompt_len, max_new_tokens=0):
-        total = min(int(prompt_len) + int(max_new_tokens), self.seq_len)
-        return self.kv.pages_needed(total)
-
-    def free_page_headroom(self):
-        active = int((self.live | self.prefilling).sum())
-        return self.kv.pages_free() + self.kv.pages_reclaimable() - active
-
-    def kv_stats(self):
-        return self.kv.stats()
-
-    def _tok(self, slot) -> int:
-        # deterministic pseudo-token from the slot's position
-        return int(self.pos[slot]) * 7 % 251
-
-    def begin_prefill(self, slot, prompt_ids, stream_id=None,
-                      sampling=None) -> int:
-        if self.live[slot] or self.prefilling[slot]:
-            raise ValueError(f"slot {slot} is occupied")
-        prompt = [int(t) for t in prompt_ids]
-        if not 0 < len(prompt) < self.seq_len:
-            raise ValueError("bad prompt length")
-        from learning_at_home_tpu_torch.models.kv_pages import PagePressure
-
-        full, partial = self.kv.prefix_lookup(prompt)
-        matched = 0
-        try:
-            for e in full:
-                self.kv.map_shared(slot, e)
-            matched = len(full) * self.kv.page_len
-            if partial is not None:
-                e, r = partial
-                dst = self.kv.alloc_slot_page(slot)
-                self.kv.copy_page_rows(e.page_id, dst, r)
-                matched += r
-        except PagePressure:
-            self.kv.release_slot(slot)
-            raise
-        self.prefilling[slot] = True
-        self._prefill_prompt[slot] = prompt
-        self.pos[slot] = matched
-        self.stream_ids[slot] = stream_id
-        return matched
-
-    def prefill_step(self, slot, max_tokens):
-        if not self.prefilling[slot]:
-            raise ValueError(f"slot {slot} is not mid-prefill")
-        prompt = self._prefill_prompt[slot]
-        p = len(prompt)
-        start = int(self.pos[slot])
-        c = min(int(max_tokens), p - start)
-        pages = self.kv.pages_needed(start + c)
-        while int(self.kv.alloc_count[slot]) < pages:
-            self.kv.alloc_slot_page(slot)  # may raise PagePressure
-        self.pos[slot] = start + c
-        self.prefill_chunks_total += 1
-        if start + c < p:
-            return c, None
-        self.kv.register_prefix(slot, prompt)
-        self.live[slot] = True
-        self.prefilling[slot] = False
-        self._prefill_prompt[slot] = None
-        self.prefills_total += 1
-        return c, self._tok(slot)
-
-    def ensure_decode_pages(self):
-        from learning_at_home_tpu_torch.models.kv_pages import PagePressure
-
-        lacking = []
-        for s in range(self.max_slots):
-            if not self.live[s] or self.at_capacity(s):
-                continue
-            logical = int(self.pos[s]) // self.kv.page_len
-            while int(self.kv.alloc_count[s]) <= logical:
-                try:
-                    self.kv.alloc_slot_page(s)
-                except PagePressure:
-                    lacking.append(s)
-                    break
-        return lacking
-
-    def decode_step(self):
-        nxt = self._np.zeros(self.max_slots, self._np.int32)
-        for s in range(self.max_slots):
-            if self.live[s]:
-                nxt[s] = self._tok(s)
-                self.pos[s] += 1
-        self.decode_steps_total += 1
-        return nxt
-
-    # speculative contract — same shapes as SwarmKVDecoder, the trunk
-    # replaced by the _tok arithmetic.  The PagedKVCache underneath is
-    # REAL, so ensure_lookahead_pages allocates genuine pool pages and
-    # verify_step's rollback runs the production truncate_slot with its
-    # inline kv.rollback_private_only check.
-
-    def ensure_lookahead_pages(self, slot, k) -> int:
-        from learning_at_home_tpu_torch.models.kv_pages import PagePressure
-
-        pos = int(self.pos[slot])
-        top = min(pos + int(k), self.seq_len - 1)
-        want = top // self.kv.page_len
-        while int(self.kv.alloc_count[slot]) <= want:
-            try:
-                self.kv.alloc_slot_page(slot)
-            except PagePressure:
-                break
-        covered = int(self.kv.alloc_count[slot]) * self.kv.page_len - 1
-        return max(0, min(int(k), covered - pos))
-
-    def verify_step(self, proposals: dict) -> dict:
-        if not proposals:
-            return {}
-        out: dict = {}
-        self.last_verify = []
-        for s in sorted(int(x) for x in proposals):
-            if not self.live[s]:
-                raise ValueError(f"slot {s} is not live")
-            drafts = [int(t) for t in proposals[s]]
-            pos = int(self.pos[s])
-            if pos + len(drafts) > self.seq_len - 1:
-                raise ValueError(
-                    f"slot {s}: {len(drafts)} drafts at position {pos} "
-                    f"exceed the cache ({self.seq_len} positions)"
-                )
-            want = (pos + len(drafts)) // self.kv.page_len
-            if int(self.kv.alloc_count[s]) <= want:
-                raise ValueError(
-                    f"slot {s} has no KV page for its lookahead — "
-                    "call ensure_lookahead_pages() first"
-                )
-            # row j's sample is exactly what decode_step would emit at
-            # position pos+j under the token arithmetic
-            samples = [
-                (pos + j) * 7 % 251 for j in range(len(drafts) + 1)
-            ]
-            a = 0
-            while a < len(drafts) and drafts[a] == samples[a]:
-                a += 1
-            tokens = samples[:a + 1]
-            self.pos[s] = pos + a + 1
-            self.kv.truncate_slot(s, int(self.pos[s]))
-            out[s] = {
-                "tokens": tokens, "accepted": a, "proposed": len(drafts)
-            }
-            self.last_verify.append({
-                "slot": s, "stream_id": self.stream_ids[s],
-                "drafts": drafts, "samples": samples,
-                "accepted": a, "tokens": list(tokens),
-            })
-        self.verify_rounds_total += 1
-        return out
-
-
 class SimGateway:
     """One gateway: the real scheduler/admission/routing stack pumped by
     a coroutine on the virtual clock.
@@ -641,6 +418,10 @@ class SimGateway:
         max_pending: Optional[int] = None,
         mirror_period_s: float = 5.0,
     ):
+        from learning_at_home_tpu_torch.analysis.verify import (
+            _FakePagedDecoder,
+        )
+
         self.name = name
         self.dht = dht
         self.clock = clock
