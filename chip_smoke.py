@@ -328,6 +328,35 @@ Phases, each of which asserts (none catches its own failure):
                No kernel of the kernels line is on this path (0
                launches, this process's and the fuzz worker's).
 
+20. pre-test gate -- the port's ``tools/collect_gate.py`` on the card, in
+               a worker process with the port's sanitizer armed
+               (``LAH_SANITIZE=1``): (a) its orphan guard, a leak check
+               on phases 11-19 (no port server process may outlive
+               them); (b) its collection stage: where the JAX package
+               cannot import (jax, flax or optax missing), the
+               torch-only port test files under ``--noconftest``; (c)
+               GATE_SMOKES, the gate's smokes whose servers, decoder or
+               model sit on the card, on GATE_DEVICE: client path (both
+               wire protocols), averaging (trees on the card), codec
+               (``u8`` and ``blockq8`` must cut the wire /4.00 and /3.87,
+               gradient cosine >= 0.99), telemetry (``lah_top`` through
+               the DHT), replication (the hedge after a primary kill),
+               overlap (card server processes; the trainer on the host
+               CPU, where its attention is the work the window hides),
+               lifecycle (a drain, bitwise), gateway (card server
+               processes and decoder, coalescing and prefix hits) and the
+               SLO trace; each marker asserted and the servers' device
+               printed (in-process: their experts'; server processes:
+               their ``stats`` RPC's card peak bytes, present only for
+               card experts).  Not rerun here: the gate's stages 0-0.8
+               are phase 19's (a)-(d) with the same tools and arguments;
+               its DHT sim, macro-sim and SLO churn smokes are phases 18
+               (d) and 16 (e) with the same tools.  Prints each step's
+               seconds and lines (the codec ratios, the overlap A/B, the
+               gateway's fired and per-stream dispatches and prefix
+               hits).  No kernel of the kernels line is on this path (0
+               launches, this process's and the gate worker's).
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA card or
 without the repository's package beside it.
@@ -343,7 +372,8 @@ phase 15 on key-seeded params, then the twins' check;
 and key-seeded params; no kernels line); ``--mesh-only`` runs phases 1, 2
 and 17 (no kernels line); ``--ckpt-only`` runs phases 1, 2 and 18 (no
 kernels line); ``--tools-only`` runs phases 1 and 19 (no kernel is built,
-no kernels line).
+no kernels line); ``--gate-only`` runs phases 1 and 20 (no kernel is
+built, no kernels line).
 """
 
 from __future__ import annotations
@@ -355,6 +385,7 @@ import contextlib
 import dataclasses
 import gc
 import hashlib
+import io
 import itertools
 import json
 import math
@@ -443,6 +474,7 @@ from learning_at_home_tpu_torch.utils import checkpoint as ckpt_io
 from learning_at_home_tpu_torch.utils.nested import nested_flatten, nested_map
 from learning_at_home_tpu_torch.utils.profiling import timeline
 from learning_at_home_tpu_torch.utils.subproc import find_orphan_servers
+from learning_at_home_tpu_torch.tools import collect_gate
 from learning_at_home_tpu_torch.tree import tree_leaves, tree_map
 
 SEED = 0
@@ -3617,32 +3649,8 @@ def ckpt_phase(counters, card: str) -> dict:
 TOOLS = "learning_at_home_tpu_torch.tools"
 # the placement gate's skewed two-node fixture: two co-activation clusters
 # split across the nodes and a slow measured link, so the solver must
-# consolidate (a copy of the JAX repo's tools/collect_gate.py fixture)
-PLACEMENT_FIXTURE = {
-    "experts": {
-        "expert.0": "10.0.0.1:31330", "expert.1": "10.0.0.2:31330",
-        "expert.2": "10.0.0.1:31330", "expert.3": "10.0.0.2:31330",
-        "expert.4": "10.0.0.1:31330", "expert.5": "10.0.0.2:31330",
-    },
-    "activations": {
-        "expert.0": 900, "expert.1": 850, "expert.2": 800,
-        "expert.3": 120, "expert.4": 100, "expert.5": 80,
-    },
-    "coact": {
-        "expert.0|expert.1": 700, "expert.1|expert.2": 650,
-        "expert.0|expert.2": 600, "expert.3|expert.4": 90,
-        "expert.4|expert.5": 80,
-    },
-    "links": {
-        "10.0.0.1:31330": {"10.0.0.2:31330": [0.04, 5.0e7]},
-        "trainer-a": {
-            "10.0.0.1:31330": [0.002, 2.0e8],
-            "10.0.0.2:31330": [0.05, 4.0e7],
-        },
-    },
-    "sources": {"trainer-a": 1.0},
-    "bytes_per_dispatch": 1.5e6,
-}
+# consolidate
+PLACEMENT_FIXTURE = collect_gate._PLACEMENT_FIXTURE
 TOOLS_TIMEOUT_S = 300  # each tool process; the phase takes ~40 s
 WIRE_HANDLERS = 20  # (family, module, op) entries of the wire IR
 
@@ -3880,6 +3888,116 @@ def tools_phase(counters, card: str, corpus: dict | None = None) -> dict:
     print(f"  kernel launches in phase 19: {launches}")
     print(f"tools phase: {time.time() - t_phase:.1f} s [{card}]")
     return {"operator tools (phase 19)": launches}
+
+
+# ---- phase 20: the pre-test gate ----
+
+# the gate's smokes whose servers, decoder or model sit on the card (the
+# DHT sim, macro-sim and SLO churn smokes are phases 18 (d) and 16 (e),
+# with the same tools)
+GATE_SMOKES = ("client_path_smoke", "averaging_smoke", "codec_smoke",
+               "telemetry_smoke", "replication_smoke", "overlap_smoke",
+               "lifecycle_smoke", "gateway_smoke", "slo_trace_smoke")
+GATE_DEVICE = "cuda:0"
+
+
+class _Tee(io.TextIOBase):
+    """Writes go to each of ``streams``."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text: str) -> int:
+        for stream in self.streams:
+            stream.write(text)
+        return len(text)
+
+    def flush(self) -> None:
+        for stream in self.streams:
+            stream.flush()
+
+
+def gate_worker() -> None:
+    """Phase 20 in a process of its own, with the port's sanitizer armed
+    (``LAH_SANITIZE=1`` in its environment): the port gate's orphan guard,
+    its collection stage and GATE_SMOKES on GATE_DEVICE, each step's
+    output both captured and passed to standard error; prints one JSON
+    line of the steps (exit code, seconds, output) and this process's
+    kernel launches.  A smoke's failure raises out of the worker."""
+    from learning_at_home_tpu_torch.utils import sanitizer
+
+    assert sanitizer.enabled()
+    counters = kernel_counters()
+    reset_counts(counters)
+    smokes = {fn.__name__: fn for _, fn in collect_gate.SMOKES}
+    steps = [("orphan guard", collect_gate.orphan_guard, ()),
+             ("collection", collect_gate.collection_stage, ()),
+             *((name, smokes[name], (GATE_DEVICE,)) for name in GATE_SMOKES)]
+    report = []
+    for name, fn, args in steps:
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(_Tee(buf, sys.stderr)):
+            rc = fn(*args)
+        report.append({"name": name, "rc": rc,
+                       "seconds": time.perf_counter() - t0,
+                       "out": buf.getvalue()})
+        assert rc == 0, (name, rc)
+    print(json.dumps({"steps": report, "launches": read_counts(counters)}))
+
+
+def gate_phase(counters, card: str) -> dict:
+    """Phase 20 (see the module docstring): the gate worker, then its
+    steps' checks; returns the kernels' launch counts (this process's and
+    the worker's: none is expected)."""
+    t_phase = time.time()
+    reset_counts(counters)
+    jobs = {"gate": tool_process("gate", [
+        "-c", "import chip_smoke; chip_smoke.gate_worker()"],
+        env={"LAH_SANITIZE": "1"})}
+    try:
+        done = tool_results(jobs)
+    finally:
+        stop_tools(jobs)
+    rc, out, s = done["gate"]
+    assert rc == 0, f"the gate worker exited {rc}"
+    rep = json.loads(out.splitlines()[-1])
+    steps = {step["name"]: step for step in rep["steps"]}
+    markers = {fn.__name__: m for m, fn in collect_gate.SMOKES}
+    for step in rep["steps"]:
+        lines = step["out"].splitlines()
+        print(f"  {step['name']}: exit {step['rc']}, "
+              f"{step['seconds']:.1f} s [{card}]")
+        for line in lines:
+            print(f"      {line}")
+        assert step["rc"] == 0
+        if step["name"] in markers:
+            assert any(line.startswith(markers[step["name"]] + " ")
+                       for line in lines), (step["name"], lines)
+    assert steps["orphan guard"]["out"] == ""  # no port server left over
+    collected = steps["collection"]["out"].splitlines()
+    assert re.fullmatch(r"collect_gate: OK — \d+ tests collected in .*s",
+                        collected[-1]), collected
+    codec = re.findall(r"codec (\w+): bytes /([0-9.]+), grad_cosine "
+                       r"([0-9.]+)", steps["codec_smoke"]["out"])
+    assert [(c, r) for c, r, _ in codec] == [("u8", "4.00"),
+                                             ("blockq8", "3.87")], codec
+    assert all(float(cos) >= 0.99 for _, _, cos in codec)
+    for name in GATE_SMOKES:
+        assert f"on {GATE_DEVICE}" in steps[name]["out"], name
+    for name in ("overlap_smoke", "gateway_smoke"):  # server processes
+        peaks = re.search(
+            r"card peak bytes \(stats\) \[([0-9.]+), ([0-9.]+)\]",
+            steps[name]["out"])
+        assert peaks and min(float(p) for p in peaks.groups()) > 0, \
+            steps[name]["out"]
+    launches = {k: v + rep["launches"][k]
+                for k, v in read_counts(counters).items()}
+    assert not any(launches.values()), launches
+    print(f"  kernel launches in phase 20: {launches}")
+    print(f"gate phase: {time.time() - t_phase:.1f} s (the worker "
+          f"{s:.1f} s) [{card}]")
+    return {"pre-test gate (phase 20)": launches}
 
 
 # ---- phase 14: the elastic swarm ----
@@ -4600,6 +4718,9 @@ def main() -> int:
     ap.add_argument("--tools-only", action="store_true",
                     help="phases 1 and 19 only (the operator tools; no "
                          "kernel is built, no kernels line)")
+    ap.add_argument("--gate-only", action="store_true",
+                    help="phases 1 and 20 only (the pre-test gate; no "
+                         "kernel is built, no kernels line)")
     args = ap.parse_args()
     phase("device")
     if not torch.cuda.is_available():
@@ -4614,6 +4735,11 @@ def main() -> int:
     if args.tools_only:
         phase("operator tools")
         tools_phase(counters, card)
+        print(card)
+        return 0
+    if args.gate_only:
+        phase("pre-test gate")
+        gate_phase(counters, card)
         print(card)
         return 0
     if args.swarm_lm_only or args.gateway_only:
@@ -4723,6 +4849,9 @@ def main() -> int:
 
     phase("operator tools")
     launches.update(tools_phase(counters, card, corpus))
+
+    phase("pre-test gate")
+    launches.update(gate_phase(counters, card))
 
     kernels = []
     for name, (source, replaces, shape) in KERNELS.items():

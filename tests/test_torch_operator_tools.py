@@ -34,7 +34,11 @@ from learning_at_home_tpu_torch.client.rpc import reset_client_rpc
 from learning_at_home_tpu_torch.dht import DHT
 from learning_at_home_tpu_torch.experiments import build_corpus
 from learning_at_home_tpu_torch.server.server import Server
-from learning_at_home_tpu_torch.tools import lah_rebalance, lah_top
+from learning_at_home_tpu_torch.tools import (
+    collect_gate,
+    lah_rebalance,
+    lah_top,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 jax_top = importlib.import_module("tools.lah_top")
@@ -246,10 +250,15 @@ def test_sample_slo_takes_worst_trainer():
 
 
 def test_plan_cli_prints_the_jax_tools_bytes(tmp_path):
-    gate = importlib.import_module("tools.collect_gate")
+    """On the placement gate's fixtures, the port gate's own copies (each
+    equal to the JAX gate's)."""
+    jax_gate = importlib.import_module("tools.collect_gate")
+    assert collect_gate._PLACEMENT_FIXTURE == jax_gate._PLACEMENT_FIXTURE
+    assert collect_gate._PLACEMENT_SWAP_FIXTURE == \
+        jax_gate._PLACEMENT_SWAP_FIXTURE
     outs = {}
-    for label, fixture in (("skewed", gate._PLACEMENT_FIXTURE),
-                           ("swap", gate._PLACEMENT_SWAP_FIXTURE)):
+    for label, fixture in (("skewed", collect_gate._PLACEMENT_FIXTURE),
+                           ("swap", collect_gate._PLACEMENT_SWAP_FIXTURE)):
         path = tmp_path / f"{label}.json"
         path.write_text(json.dumps(fixture))
         argv = ["--plan", str(path), "--seed", "0"]

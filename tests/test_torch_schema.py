@@ -7,10 +7,12 @@ The port's operator tools live inside its package (``tools/``), so the
 JAX side is the package plus the JAX repo's twins of those tools.  The
 two IRs are equal modulo the root: every handler (family, module, op)
 with its accepted fields, kinds and types, every sender site with its
-fields, every gate candidate, nothing unresolved.  The one difference is
+fields, every gate candidate, nothing unresolved.  The differences are
 named: the port's experiment drivers sit inside its package, so
 ``experiments/train_lm.py``'s ``stats`` RPC is a sender site there and
-not in the JAX package.
+not in the JAX package; and the port's pre-test gate reads its smokes'
+server processes' card peak bytes through one ``stats`` RPC, which the
+JAX gate (on the CPU only) does not send.
 """
 
 import collections
@@ -26,8 +28,10 @@ from learning_at_home_tpu_torch.analysis import schema as port_schema
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_PKG = os.path.join(REPO, "learning_at_home_tpu")
 PORT = os.path.join(REPO, "learning_at_home_tpu_torch")
-TOOLS = ["lah_lint", "lah_verify", "lah_fuzz", "lah_rebalance", "lah_top"]
-PORT_ONLY_SENDERS = {("experiments/train_lm.py", "stats", ()): 1}
+TOOLS = ["lah_lint", "lah_verify", "lah_fuzz", "lah_rebalance", "lah_top",
+         "collect_gate"]
+PORT_ONLY_SENDERS = {("experiments/train_lm.py", "stats", ()): 1,
+                     ("tools/collect_gate.py", "stats", ()): 1}
 
 
 def _rel(path: str) -> str:
@@ -83,7 +87,7 @@ def test_senders_differ_only_by_the_named_site(irs):
     assert jax["senders"] - port["senders"] == collections.Counter()
     tools = {path for path, _, _ in port["senders"]
              if path.startswith("tools/")}
-    assert tools == {"tools/lah_rebalance.py"}
+    assert tools == {"tools/lah_rebalance.py", "tools/collect_gate.py"}
 
 
 def test_gate_candidates_and_unresolved_are_the_jax_packages(irs):
