@@ -110,15 +110,15 @@ Phases, each of which asserts (none catches its own failure):
                of the same rows),
                each with its share of its bound (bound / time); and the
                router-jitter noise of one layer drawn without its cache.
-13. swarm LM -- ``swarm-dmoe-4l-256e-d512`` ([BJ] config 3 at the
-               config-3 width: d 512, 4 layers, 8 heads, seq 256, byte
-               vocabulary, grid (16, 16), top-2, every timeout and quorum
-               setting at the config's defaults) through the DHT: a
+13. swarm LM -- ``swarm-dmoe-2l-256e-d512`` ([BJ] config 3 at the
+               config-3 width: d 512, 8 heads, seq 256, byte vocabulary,
+               grid (16, 16), top-2, every timeout and quorum setting at
+               the config's defaults; its 4 layers cut to 2) through the DHT: a
                bootstrap DHT node here, one expert server process a layer
                started through ``python -m learning_at_home_tpu_torch.server``
                on the card (256 ``ffn`` experts at hidden 512 each, adam
                3e-4, max batch 4096), and the trainer here on the card with
-               its own DHT node as the expert source.  All 1024 experts
+               its own DHT node as the expert source.  All 512 experts
                must be alive in the DHT before a deadline, and each MoE
                layer holds the set it then resolves (``hold_alive_sets``:
                the servers neither join nor leave); then warm-up
@@ -186,8 +186,8 @@ Phases, each of which asserts (none catches its own failure):
                expert's init time at hidden 512.  No kernel of the
                kernels line is on this path (0 launches).
 
-15. gateway  -- ``gateway swarm-dmoe-4l-256e-d512``: config 3 served from
-               phase 13's four server processes and its trained params,
+15. gateway  -- ``gateway swarm-dmoe-2l-256e-d512``: config 3 served from
+               phase 13's two server processes and its trained params,
                before they stop, through a port ``Gateway`` on the card (8
                slots, the paged KV layout at page_len 16, the prefix
                cache, coalescing, prefill in chunks of 16 tokens; the
@@ -195,7 +195,7 @@ Phases, each of which asserts (none catches its own failure):
                layer holding the alive set it resolves first).  16
                streams, twice the slots, submitted at once through a
                ``GatewayClient``: prompts of 32-128 bytes of the synthetic
-               corpus, every other one sharing a 64-byte prefix, 64 new
+               corpus, every other one sharing a 64-byte prefix, 32 new
                tokens each, 12 greedy and 4 sampled (temperature 0.8,
                top-p 0.9, top-k 40, a seed each).  Asserts: one row
                through a card server alone and in batches of 2-16 and
@@ -204,7 +204,7 @@ Phases, each of which asserts (none catches its own failure):
                ungrouped dispatches (paged against dense, coalesced
                against solo); a second gateway with spec_k 4 (the n-gram
                drafter) and unchunked prefill gives the same tokens for
-               every stream; two greedy streams' first 8 tokens equal the
+               every stream; two greedy streams' first 4 tokens equal the
                re-forward argmax chain through ``model.apply``; the
                scheduler's and the pool's audits are empty; dispatches
                were coalesced and the prefix cache hit.  Prints, beside
@@ -233,9 +233,9 @@ Phases, each of which asserts (none catches its own failure):
                ``--bench 64`` (and once with 1 new token): 4 flash
                launches a generate (phase 5's); prints prefill ms and
                decode ms/token; (c) ``train_lm --mode swarm
-               --subprocess-servers`` at config 3 (256 experts a layer on 4
-               server processes, seq 256, batch 8, 6 steps,
-               ``OMP_NUM_THREADS`` = cores / 4): 1024/1024 experts
+               --subprocess-servers`` at config 3 cut to 2 layers (256
+               experts a layer on 2 server processes, seq 256, batch 8, 4
+               steps, ``OMP_NUM_THREADS`` = cores / 4): 512/512 experts
                discovered, finite losses, backward RPCs acked <= the
                servers' updates <= sent, no server left after the run; (d)
                the loadgen twin's ``run_load`` against a gateway on phase
@@ -250,7 +250,8 @@ Phases, each of which asserts (none catches its own failure):
                falls; steps/s and updates applied.
 
 17. mesh     -- the pod tier on meshes of ranks (``parallel/``), the
-               flagship at full width and depth: (a) one NCCL rank, mesh
+               flagship at full width ((a) at full depth, (b) and (c)
+               with its 4 layers cut to 2, MESH_PAIR): (a) one NCCL rank, mesh
                {"data": 1, "expert": 1}: its loss and every gradient leaf
                bit for bit the single-device model's (``mesh=None``) on
                the same weights and batch, then MESH_STEPS steps of
@@ -265,7 +266,8 @@ Phases, each of which asserts (none catches its own failure):
                the recipe's bf16 with the routing choices that differ
                counted and replayed (phase 7's limits); then MESH_STEPS
                steps of ``flagship-8k-train`` (2 rows a rank): finite
-               falling losses and phase 7's launches on each rank; (c) the
+               falling losses and phase 7's launches a layer on each
+               rank (the pair's processes start while (a) runs); (c) the
                same ranks, before (b)'s steps, on {"expert": 1, "seq": 2}:
                the zigzag ring at seq 8192 in f32 against plain attention
                on one device that routes its tokens in the zigzag order
@@ -277,7 +279,8 @@ Phases, each of which asserts (none catches its own failure):
 
 18. checkpoints -- sharded train state on a mesh, through the CLIs a
                user types: (a) ``train_lm --mode pod`` at phase 16 (a)'s
-               widths (config 3: d 512, 4 layers, 256 experts, seq 8192,
+               widths (config 3: d 512, 256 experts, seq 8192, its 4
+               layers cut to 2 (CKPT_LAYERS),
                bf16 params, optax's Adafactor chain, batch 4) on two gloo
                ranks sharing the card, mesh {"data": 1, "expert": 2}, 2
                rows a rank, 4 steps with ``--checkpoint-every 2`` (each
@@ -285,7 +288,7 @@ Phases, each of which asserts (none catches its own failure):
                barrier); a second job in fresh processes ``--resume``s
                from a root holding only step 2 and runs steps 3-4: its
                losses must be the first job's bit for bit, and each rank
-               must launch the flash forward, dkv and dq kernels 4 times a
+               must launch the flash forward, dkv and dq kernels 2 times a
                step (K1-K3 0: train_lm takes the chunked CE, as the JAX
                script does); prints the bytes a save writes, save and
                restore seconds and MB/s, step times, peak memory; (b) step
@@ -293,7 +296,7 @@ Phases, each of which asserts (none catches its own failure):
                each rank's slice equal to what that rank saved (digests of
                the bytes), then ``generate_lm --checkpoint-dir`` decodes 16
                greedy tokens for 2 prompts of 4096 bytes from that step
-               onto the single-device model: 4 flash launches (the
+               onto the single-device model: 2 flash launches (the
                prefill); (c) ``decode_gap_eval`` at its own widths on
                {"expert": 2} (two gloo ranks on the card), --steps cut to
                CKPT_GAP_STEPS: both ranks the same report, the JAX
@@ -357,6 +360,23 @@ Phases, each of which asserts (none catches its own failure):
                hits).  No kernel of the kernels line is on this path (0
                launches, this process's and the gate worker's).
 
+21. profiling tools -- the step profiler and the roofline, in this
+               process: (a) ``experiments/profile_step`` with the bench
+               recipe (PROFILE_A: batch 176, the per-layer tuple, the
+               fused Adafactor, ``--trace``; bf16 params on the card, the
+               chunked CE, plain attention at seq 256) prints its JSON
+               line with ``mfu`` and ``hbm_peak_gb``; its trace (3 steps
+               under ``utils/profiling.device_trace``) must parse and
+               hold CUDA kernel events; its refusal estimate is printed
+               beside the measured peak (a finding, not a check); (b)
+               the same with ``--remat-policy dots`` (PROFILE_B); (c)
+               PROFILE_REFUSED, whose estimate exceeds 0.75 of the
+               card's memory, must exit 2 with the card's allocated
+               bytes unchanged; (d) ``tools/roofline`` on the card's
+               constants with (a)'s ``step_ms`` as its anchor prints its
+               lines.  No kernel of the kernels line is on this path (0
+               launches over (a) and (b)).
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA card or
 without the repository's package beside it.
@@ -373,7 +393,8 @@ and key-seeded params; no kernels line); ``--mesh-only`` runs phases 1, 2
 and 17 (no kernels line); ``--ckpt-only`` runs phases 1, 2 and 18 (no
 kernels line); ``--tools-only`` runs phases 1 and 19 (no kernel is built,
 no kernels line); ``--gate-only`` runs phases 1 and 20 (no kernel is
-built, no kernels line).
+built, no kernels line); ``--profile-only`` runs phases 1 and 21 (no
+kernel is built, no kernels line).
 """
 
 from __future__ import annotations
@@ -395,6 +416,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -429,6 +451,7 @@ from learning_at_home_tpu_torch.experiments import (
     generate_lm,
     loadgen,
     mnist_expert,
+    profile_step,
     train_lm,
 )
 from learning_at_home_tpu_torch.gateway import Gateway, GatewayClient
@@ -471,10 +494,11 @@ from learning_at_home_tpu_torch.server.expert_backend import (
 from learning_at_home_tpu_torch.server.server import Server, uid_key
 from learning_at_home_tpu_torch.utils import telemetry
 from learning_at_home_tpu_torch.utils import checkpoint as ckpt_io
+from learning_at_home_tpu_torch.utils import sizing
 from learning_at_home_tpu_torch.utils.nested import nested_flatten, nested_map
 from learning_at_home_tpu_torch.utils.profiling import timeline
 from learning_at_home_tpu_torch.utils.subproc import find_orphan_servers
-from learning_at_home_tpu_torch.tools import collect_gate
+from learning_at_home_tpu_torch.tools import collect_gate, roofline
 from learning_at_home_tpu_torch.tree import tree_leaves, tree_map
 
 SEED = 0
@@ -547,24 +571,26 @@ SWARM_PARAM_ATOL, SWARM_PARAM_RTOL = 1e-6, 1e-5
 SWARM_MOMENT_ATOL, SWARM_MOMENT_RTOL = 1e-5, 1e-4
 SWARM_BF16_ATOL_SCALE = 2.0 ** -6
 # [BJ] config 3, the swarm DMoE-Transformer, at the repo's config-3 width
-# (__graft_entry__.py: d 512, 4 layers, 8 heads of 64, seq 256, top-2):
-# the byte vocabulary, the (16, 16) grid of the config's default (256 ffn
-# experts a layer, 1024 in all, hidden 512), every timeout and quorum
-# setting at the config's defaults; one server process a layer through
-# the port's CLI (adam 3e-4, max batch 4096), the trainer in this process
-# with adamw(3e-4) on 8 x 256 tokens of the synthetic corpus a step
-SWARM_LM = dict(vocab_size=VOCAB_SIZE, d_model=512, n_layers=4, n_heads=8,
+# (__graft_entry__.py: d 512, 8 heads of 64, seq 256, top-2) with its 4
+# layers cut to 2 (the script's time limit): the byte vocabulary, the
+# (16, 16) grid of the config's default (256 ffn experts a layer, 512 in
+# all, hidden 512), every timeout and quorum setting at the config's
+# defaults; one server process a layer through the port's CLI (adam 3e-4,
+# max batch 4096), the trainer in this process with adamw(3e-4) on 8 x
+# 256 tokens of the synthetic corpus a step
+SWARM_LM = dict(vocab_size=VOCAB_SIZE, d_model=512, n_layers=2, n_heads=8,
                 seq_len=256, grid_size=(16, 16), k_best=2)
+SWARM_LM_NAME = f"swarm-dmoe-{SWARM_LM['n_layers']}l-256e-d512"
 SWARM_LM_BATCH = 8
 SWARM_LM_LR = 3e-4
 SWARM_LM_SERVER = ["--optimizer", "adam", "--lr", str(SWARM_LM_LR),
                    "--max-batch-size", "4096", "--warmup"]
-SWARM_LM_TIMED, SWARM_LM_OVERLAP_STEPS = 5, 3
+SWARM_LM_TIMED, SWARM_LM_OVERLAP_STEPS = 3, 2
 # warm-up steps until the last 3 steps' times, and the experts they
-# called, each lie within 10 % of each other (at most 20 steps)
-SWARM_LM_SETTLE_STEPS, SWARM_LM_SETTLE, SWARM_LM_WARMUP_MAX = 3, 0.1, 20
+# called, each lie within 10 % of each other (at most 10 steps)
+SWARM_LM_SETTLE_STEPS, SWARM_LM_SETTLE, SWARM_LM_WARMUP_MAX = 3, 0.1, 10
 SWARM_LM_PIPELINED_STEPS, SWARM_LM_PROFILE_STEPS = 4, 2
-SWARM_LM_DISCOVERY_S = 300.0  # the deadline for all 1024 experts
+SWARM_LM_DISCOVERY_S = 300.0  # the deadline for all the layers' experts
 ALIVE_HOLD_S = 3600.0  # how long phases 13 and 15 keep a layer's alive set
 # card against the CPU at a small size: two twin swarms (server processes
 # and trainer on the card; the same on the CPU) of 2 layers, grid (4,),
@@ -600,7 +626,7 @@ ELASTIC_GRACE_S = 1.0
 ELASTIC_STEPS_AROUND = 3  # timed steps before and after the drain
 ELASTIC_DRAIN_S = 600.0  # the deadline for A to reach DRAINED
 ELASTIC_SYNC_S = 120.0  # the deadline for a replica sync round per uid
-# phase 15 (gateway swarm-dmoe-4l-256e-d512): config 3 served through a
+# phase 15 (gateway swarm-dmoe-2l-256e-d512): config 3 served through a
 # port Gateway on the card (8 slots, the paged KV layout at page_len 16,
 # the prefix cache, coalescing, chunked prefill of 16 tokens a pass) from
 # phase 13's servers; the serving model pins the wire to f32, the gate
@@ -609,7 +635,7 @@ ELASTIC_SYNC_S = 120.0  # the deadline for a replica sync round per uid
 GATEWAY = dict(SWARM_LM, wire_codec="none", routing_cost_weight=0,
                timeout_after_k_min=SWARM_CHECK_GRACE_S)
 GATEWAY_SLOTS, GATEWAY_PAGE_LEN, GATEWAY_CHUNK = 8, 16, 16
-GATEWAY_STREAMS, GATEWAY_NEW = 16, 64  # twice the slots: admission queues
+GATEWAY_STREAMS, GATEWAY_NEW = 16, 32  # twice the slots: admission queues
 GATEWAY_PROMPT = (32, 128)  # bytes of the synthetic corpus
 GATEWAY_PREFIX = 64  # the bytes every other prompt shares
 GATEWAY_SAMPLED = (1, 4, 9, 14)  # the sampled streams (the rest greedy)
@@ -617,13 +643,14 @@ GATEWAY_SAMPLING = dict(temperature=0.8, top_p=0.9, top_k=40)
 GATEWAY_SPEC_K = 4
 # streams held against the re-forward argmax chain, and their tokens
 # held (each token a full forward of every stream's sequence: ~0.8 s)
-GATEWAY_REFORWARD, GATEWAY_REFORWARD_TOKENS = 2, 8
+GATEWAY_REFORWARD, GATEWAY_REFORWARD_TOKENS = 2, 4
 GATEWAY_DEADLINE_S = 300.0  # for every stream of one arm to finish
 GATEWAY_POLL_S = 0.1  # the client's pause between rounds of polls
 # phase 16 (the experiment drivers through their CLIs): (a) [BJ] config
 # 3's widths in pod mode at seq 8192 with the byte vocabulary and optax's
 # Adafactor chain; (b) generation at the same widths from a 4096-byte
-# prompt; (c) config 3 through the swarm trainer and 4 server processes;
+# prompt; (c) config 3 cut to 2 layers through the swarm trainer and 2
+# server processes;
 # (d) open-loop load on phase 15's gateway; (e) [BJ] config 4's churn;
 # (f) the server benchmark; (g) [BJ] config 1
 EXP_POD = ["--mode", "pod", "--d-model", "512", "--n-layers", "4",
@@ -634,10 +661,12 @@ EXP_POD_STEPS = 4
 EXP_GEN = ["--no-checkpoint", "--seq-len", "8192", "--d-model", "512",
            "--n-layers", "4", "--num-experts", "256"]
 EXP_GEN_PROMPT, EXP_GEN_BENCH = 4096, 64
+EXP_SWARM_LAYERS, EXP_SWARM_STEPS = 2, 4
 EXP_SWARM = ["--mode", "swarm", "--subprocess-servers", "--d-model", "512",
-             "--n-layers", "4", "--experts-per-layer", "256",
-             "--n-servers", "4", "--seq-len", "256", "--batch-size", "8",
-             "--steps", "6", "--log-every", "1"]
+             "--n-layers", str(EXP_SWARM_LAYERS), "--experts-per-layer",
+             "256", "--n-servers", str(EXP_SWARM_LAYERS), "--seq-len", "256",
+             "--batch-size", "8", "--steps", str(EXP_SWARM_STEPS),
+             "--log-every", "1"]
 EXP_SWARM_S = 420.0  # the swarm trainer's run, discovery included
 EXP_LOAD = dict(rate_hz=2.0, duration_s=15.0)  # the CLI's other defaults
 EXP_CHURN = ["--profile", "fast"]
@@ -668,8 +697,8 @@ MESH_CHECK_CE = [(rows * MESH_CHECK_SEQ, *CE_TRAIN[1:]) for rows in (1, 2)]
 # flagship-8k prefill, flagship-8k-train
 DISPATCH_TRAIN = (45056, 512, 256, 440)
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3
-PEAK_BF16_FLOPS = 989e12
-PEAK_BYTES = 3.35e12
+PEAK_BF16_FLOPS = sizing.CARD_PEAK_BF16[sizing.H100]
+PEAK_BYTES = sizing.CARD_HBM_BPS[sizing.H100]
 # the library Pallas kernel whose backward the dkv and dq kernels replace
 LIBRARY_FLASH = "jax/experimental/pallas/ops/tpu/flash_attention.py"
 # the kernels line: each kernel's source in csrc/, the TPU kernel it
@@ -754,6 +783,9 @@ ATTN_GRAD_NORM_RTOL = 1e-2
 # on {"expert": 1, "seq": 2}, the zigzag ring at seq 8192.
 MESH_STEPS = 3
 MESH_CALL_S = 420.0
+# (b) and (c) on flagship-8k-train's widths with its 4 layers cut to 2
+# (the script's time limit); (a) keeps all 4
+MESH_PAIR = dict(FLAGSHIP_8K_TRAIN, n_layers=2)
 # (b)'s f32 check (bf16 params, the chunked CE): the sides differ by f32
 # summation order (~1e-6 relative), so the loss within 1e-4 relative;
 # gradients of bf16 params are rounded to bf16 (2^-9), a rank's shares
@@ -780,7 +812,7 @@ MESH_SEQ_LOSS_RTOL = 1e-5
 ATTN_LEAVES = ("wq", "wk", "wv", "wo")
 # phase 18 (sharded checkpoints on a mesh): (a) phase 16 (a)'s train_lm pod
 # run (config 3's widths at seq 8192, bf16 params, optax's Adafactor
-# chain, batch 4) on two gloo ranks sharing the card, mesh {"data": 1,
+# chain, batch 4; CKPT_LAYERS layers) on two gloo ranks sharing the card, mesh {"data": 1,
 # "expert": 2}, 2 rows a rank, a checkpoint every CKPT_EVERY steps; a
 # second job resumes from step CKPT_EVERY and must repeat the first's
 # losses bit for bit; (b) that step restored onto one device, every leaf
@@ -790,9 +822,13 @@ ATTN_LEAVES = ("wq", "wk", "wv", "wo")
 # 128, batch 16) on {"expert": 2}, --steps cut from 150 to CKPT_GAP_STEPS;
 # (d) the two macro-sim entry points on the host, beside (c) and (b)
 CKPT_EVERY = 2
-CKPT_POD = EXP_POD + ["--checkpoint-every", str(CKPT_EVERY)]
+CKPT_LAYERS = 2  # phase 16 (a)'s 4 layers cut to 2 (the script's time limit)
+CKPT_POD = [str(CKPT_LAYERS) if EXP_POD[i - 1] == "--n-layers" else a
+            for i, a in enumerate(EXP_POD)] + [
+    "--checkpoint-every", str(CKPT_EVERY)]
 CKPT_GEN_NEW = 16
-CKPT_GEN = ["--seq-len", "8192", "--d-model", "512", "--n-layers", "4",
+CKPT_GEN = ["--seq-len", "8192", "--d-model", "512", "--n-layers",
+            str(CKPT_LAYERS),
             "--num-experts", "256", "--batch", "2", "--max-new-tokens",
             str(CKPT_GEN_NEW)]
 CKPT_GAP_STEPS = 20
@@ -818,10 +854,22 @@ CKPT_SIMS = {
 MACRO_SIM_SHA256 = (
     "83e7470025855831c79e6dde37732964be4cd663137bd59814eaea06c8e82f5e")
 MACRO_SIM_VERDICT = (1, ["MACRO_SIM_FAIL: lookup hit_rate 0.8286 < 0.95"])
+# phase 21: profile_step's bench recipe, its "dots" rung and a variant
+# past the memory budget (~99 GB by the estimate, against 0.75 of 80 GB)
+PROFILE_STEPS = 10
+PROFILE_A = ["--batch", "176", "--no-stack", "--optimizer", "fused",
+             "--steps", str(PROFILE_STEPS)]
+PROFILE_B = PROFILE_A + ["--remat-policy", "dots"]
+PROFILE_REFUSED = ["--no-remat", "--batch", "4096"]
+PROFILE_TRACE_STEPS = 3  # profile_step's --trace runs this many more
+
+
+T_START = time.perf_counter()
 
 
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    """A phase's header, with the seconds since the script started."""
+    print(f"== {name} (+{time.perf_counter() - T_START:.1f} s)", flush=True)
 
 
 def card_line() -> str:
@@ -1909,6 +1957,11 @@ class SwarmServers:
         with open(log, errors="replace") as f:
             return "".join(f.readlines()[-n:])
 
+    def logs_tail(self, names: list, n: int = 30) -> str:
+        """The last ``n`` lines of each named process's log."""
+        return "".join(f"--- {name}:\n{self.tail(log, n)}"
+                       for name, _, log in self.procs if name in names)
+
     def check(self) -> None:
         for name, proc, log in self.procs:
             if proc.poll() is not None:
@@ -2175,7 +2228,7 @@ def swarm_lm(counters, card: str, train: bool = True,
               f"the processes started) [{card}]")
 
         if not train:
-            phase("gateway swarm-dmoe-4l-256e-d512")
+            phase(f"gateway {SWARM_LM_NAME}")
             params = SwarmDMoETransformerLM(cfg, dht).init_params(
                 prng.PRNGKey(SEED), device="cuda")
             return {}, serve_gateway(counters, card, dht, params, arms=arms)
@@ -2335,7 +2388,7 @@ def swarm_lm(counters, card: str, train: bool = True,
               f"[{card}]")
         servers.check()
         print(f"swarm-lm phase: {time.perf_counter() - t_phase:.1f} s")
-        phase("gateway swarm-dmoe-4l-256e-d512")
+        phase(f"gateway {SWARM_LM_NAME}")
         gateway_counts = serve_gateway(counters, card, dht, run["params"])
         servers.check()
         return counts, gateway_counts
@@ -2828,9 +2881,10 @@ def experiment_swarm_train(card: str) -> None:
                         env={"OMP_NUM_THREADS": threads})
     tail = "\n".join(text.splitlines()[-30:])
     assert rc == 0, f"train_lm --mode swarm exited with {rc}:\n{tail}"
-    assert "# discovered 1024/1024 experts via DHT" in text, tail
+    n = EXP_SWARM_LAYERS * 256
+    assert f"# discovered {n}/{n} experts via DHT" in text, tail
     steps = [e for e in json_lines(text) if "step" in e]
-    assert [e["step"] for e in steps] == list(range(6)), tail
+    assert [e["step"] for e in steps] == list(range(EXP_SWARM_STEPS)), tail
     assert all(math.isfinite(e["loss"]) for e in steps), steps
     last = steps[-1]
     assert 0 < last["backward_rpcs_ok"] <= last["server_updates"] <= \
@@ -2839,9 +2893,10 @@ def experiment_swarm_train(card: str) -> None:
     # each line's tokens/s is cumulative since the first step began
     ends = [(e["step"] + 1) * 8 * 256 / e["tokens_per_sec"] for e in steps]
     step_s = [ends[0]] + list(np.diff(ends))
-    print(f"  train_lm --mode swarm (config 3: d 512, 4 layers, 256 experts "
-          f"a layer on 4 server processes, seq 256, batch 8; "
-          f"OMP_NUM_THREADS={threads}): 1024/1024 experts discovered; "
+    print(f"  train_lm --mode swarm (config 3: d 512, {EXP_SWARM_LAYERS} "
+          f"layers, 256 experts a layer on {EXP_SWARM_LAYERS} server "
+          f"processes, seq 256, batch 8; OMP_NUM_THREADS={threads}): "
+          f"{n}/{n} experts discovered; "
           f"losses {', '.join(str(e['loss']) for e in steps)}; step "
           f"seconds {', '.join(f'{v:.3f}' for v in step_s)} (the last "
           f"{8 * 256 / step_s[-1]:.1f} tokens/s); dispatch "
@@ -3167,7 +3222,7 @@ def mesh_rank_pair() -> dict:
     _rank_setup()
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    cfg = DMoETransformerConfig(**FLAGSHIP_8K_TRAIN)
+    cfg = DMoETransformerConfig(**MESH_PAIR)
     whole = DMoETransformerLM(cfg, device=dev).init_params(
         prng.PRNGKey(SEED))
     _note("the global tree drawn")
@@ -3182,7 +3237,7 @@ def mesh_rank_pair() -> dict:
     # drops), aux weight 0 (the balance loss is the mean of the shards',
     # the JAX layer's pmean, not the whole batch's); the tree's pos rows
     # past the sequence get no gradient on either side
-    check = dict(FLAGSHIP_8K_TRAIN, seq_len=MESH_CHECK_SEQ,
+    check = dict(MESH_PAIR, seq_len=MESH_CHECK_SEQ,
                  aux_loss_weight=0.0, capacity_factor=cfg.num_experts / cfg.k)
     f32 = DMoETransformerConfig(**dict(check, dtype=torch.float32,
                                        ce_impl="chunked"))
@@ -3191,7 +3246,7 @@ def mesh_rank_pair() -> dict:
                                   whole, local)
     # (c): the CE takes the chunked path under a seq axis; the single
     # device's too (the fused kernels take bf16 operands)
-    base = dict(FLAGSHIP_8K_TRAIN, dtype=torch.float32, ce_impl="chunked")
+    base = dict(MESH_PAIR, dtype=torch.float32, ce_impl="chunked")
     out["seq"] = mesh_check(
         make_mesh({"expert": 1, "seq": 2}, device=dev),
         DMoETransformerConfig(**dict(base, seq_parallel=True,
@@ -3254,14 +3309,19 @@ def mesh_phase(card: str) -> dict:
     print(f"this process holds {torch.cuda.memory_allocated() / 1e9:.2f} "
           "GB of the card while the ranks run")
     seq = FLAGSHIP_8K_TRAIN["seq_len"]
-    want = {"flash_attn_fwd": 8, "flash_attn_bwd_dkv": 4,
-            "flash_attn_bwd_dq": 4, "fused_ce_fwd": 1, "fused_ce_dx": 1,
-            "fused_ce_dhead": 1, "token_dispatch": 0}  # phase 7's a step
+
+    def want(n_layers):
+        """Phase 7's launches a step at ``n_layers`` layers (the flash
+        forward twice a layer: the forward and remat's recompute)."""
+        return {"flash_attn_fwd": 2 * n_layers,
+                "flash_attn_bwd_dkv": n_layers, "flash_attn_bwd_dq": n_layers,
+                "fused_ce_fwd": 1, "fused_ce_dx": 1, "fused_ce_dhead": 1,
+                "token_dispatch": 0}
 
     def per_step(run):
         return {k: n / MESH_STEPS for k, n in run["launches"].items()}
 
-    def report(label, run):
+    def report(label, run, n_layers):
         med = statistics.median(run["step_ms"])
         print(f"{label}: losses {[round(run['loss0'], 5)] + [round(x, 5) for x in run['losses']]}; "
               f"step ms {[round(x, 1) for x in run['step_ms']]} (median "
@@ -3270,20 +3330,27 @@ def mesh_phase(card: str) -> dict:
               f"{run['peak_gb']:.2f} GB; launches a step {per_step(run)}")
         assert all(math.isfinite(x) for x in run["losses"]), run["losses"]
         assert run["losses"][-1] < run["loss0"], "the loss did not fall"
-        assert per_step(run) == want, (per_step(run), want)
+        assert per_step(run) == want(n_layers), (per_step(run),
+                                                 want(n_layers))
 
-    with RankGroup(1, backend="nccl", timeout_s=MESH_CALL_S) as group:
-        a = group.run(mesh_rank_nccl)[0]
-    print(f"(a) {a['backend']} rank on {a['device']}, mesh data 1 x expert "
-          f"1 against mesh=None, flagship-8k-train batch {TRAIN_8K_BATCH}: "
-          f"loss {a['loss']:.6f} bit for bit {a['same_loss']}; gradient "
-          f"leaves that differ: {a['differ']}")
-    assert a["backend"] == "nccl"
-    assert a["same_loss"] and not a["differ"], "mesh of one rank != mesh=None"
-    report("(a) flagship-8k-train on the NCCL rank", a)
-    t1 = time.perf_counter()
-    with RankGroup(2, backend="gloo", timeout_s=MESH_CALL_S) as group:
-        pair = group.run(mesh_rank_pair)
+    # the pair's processes start (imports, rendezvous) while (a) runs;
+    # they touch the card only when called, after (a) has ended
+    with RankGroup(2, backend="gloo", timeout_s=MESH_CALL_S,
+                   wait=False) as pair_group:
+        with RankGroup(1, backend="nccl", timeout_s=MESH_CALL_S) as group:
+            a = group.run(mesh_rank_nccl)[0]
+        print(f"(a) {a['backend']} rank on {a['device']}, mesh data 1 x "
+              f"expert 1 against mesh=None, flagship-8k-train batch "
+              f"{TRAIN_8K_BATCH}: loss {a['loss']:.6f} bit for bit "
+              f"{a['same_loss']}; gradient leaves that differ: "
+              f"{a['differ']}")
+        assert a["backend"] == "nccl"
+        assert a["same_loss"] and not a["differ"], \
+            "mesh of one rank != mesh=None"
+        report("(a) flagship-8k-train on the NCCL rank", a,
+               FLAGSHIP_8K_TRAIN["n_layers"])
+        t1 = time.perf_counter()
+        pair = pair_group.run(mesh_rank_pair)
     for rank, out in enumerate(pair):
         chk = out["f32"]
         worst = _worst(chk["errors"])
@@ -3301,7 +3368,9 @@ def mesh_phase(card: str) -> dict:
         assert rel <= MESH_LOSS_RTOL, rel
         assert worst[1] <= MESH_GRAD_RTOL, worst
         report_mesh_bf16(rank, out["bf16"])
-        report(f"(b) rank {rank}, flagship-8k-train on expert 2", out["train"])
+        report(f"(b) rank {rank}, flagship-8k-train cut to "
+               f"{MESH_PAIR['n_layers']} layers on expert 2", out["train"],
+               MESH_PAIR["n_layers"])
         chk = out["seq"]
         worst = _worst(chk["errors"])
         rel = _rel(chk["loss_mesh"], chk["loss_single"])
@@ -3321,7 +3390,7 @@ def mesh_phase(card: str) -> dict:
           f"checks, then its steps: {secs} s); {card}")
 
     def summed(runs):
-        return {k: sum(r["launches"][k] for r in runs) for k in want}
+        return {k: sum(r["launches"][k] for r in runs) for k in want(1)}
 
     return {
         f"mesh (a) nccl data 1 x expert 1 ({MESH_STEPS} steps)":
@@ -3329,7 +3398,7 @@ def mesh_phase(card: str) -> dict:
         f"mesh (b) gloo expert 2, both ranks ({MESH_STEPS} steps)":
             summed([o["train"] for o in pair]),
         "mesh (c) gloo expert 1 x seq 2 (one value_and_grad, not counted)":
-            dict.fromkeys(want, 0),
+            dict.fromkeys(want(1), 0),
     }
 
 
@@ -3508,9 +3577,10 @@ def ckpt_phase(counters, card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     steps = EXP_POD_STEPS
-    want = {"flash_attn_fwd": 4, "flash_attn_bwd_dkv": 4,
-            "flash_attn_bwd_dq": 4, "fused_ce_fwd": 0, "fused_ce_dx": 0,
-            "fused_ce_dhead": 0, "token_dispatch": 0}  # a step, no remat
+    want = {"flash_attn_fwd": CKPT_LAYERS, "flash_attn_bwd_dkv": CKPT_LAYERS,
+            "flash_attn_bwd_dq": CKPT_LAYERS, "fused_ce_fwd": 0,
+            "fused_ce_dx": 0, "fused_ce_dhead": 0,
+            "token_dispatch": 0}  # a step, no remat
     # the second job's processes start (imports, rendezvous) while the
     # first job runs; they touch nothing of it and run only after it ends
     second = RankGroup(2, backend="gloo", timeout_s=CKPT_CALL_S, wait=False)
@@ -3576,7 +3646,8 @@ def ckpt_phase(counters, card: str) -> dict:
     del on_card
     axes = {"data": 1, "expert": 2}
     cfg = DMoETransformerConfig(vocab_size=VOCAB_SIZE, d_model=512,
-                                n_layers=4, seq_len=8192, num_experts=256)
+                                n_layers=CKPT_LAYERS, seq_len=8192,
+                                num_experts=256)
     for out in job1:
         layout = mesh_layout(axes, out["rank"])
         specs = DMoETransformerLM(cfg, device="cuda",
@@ -3615,7 +3686,8 @@ def ckpt_phase(counters, card: str) -> dict:
           f"init draw and restore included); launches {gen_counts}")
     assert tokens.shape == (2, EXP_GEN_PROMPT + CKPT_GEN_NEW), tokens.shape
     assert (tokens[0] == tokens[1]).all() and (tokens < VOCAB_SIZE).all()
-    assert gen_counts["flash_attn_fwd"] == 4, gen_counts  # 4 layers' prefill
+    # the layers' prefill
+    assert gen_counts["flash_attn_fwd"] == CKPT_LAYERS, gen_counts
 
     # (c) decode_gap_eval on the expert mesh
     outs = [g["out"] for g in gap]
@@ -4000,6 +4072,107 @@ def gate_phase(counters, card: str) -> dict:
     return {"pre-test gate (phase 20)": launches}
 
 
+# ---- phase 21: the profiling tools ----
+
+
+def run_profile_step(argv: list) -> tuple[int, dict | None, str, str]:
+    """``profile_step.main(argv)`` in this process: (exit code, its
+    returned dict or None, its stdout, its stderr)."""
+    out, err = io.StringIO(), io.StringIO()
+    got, rc = None, 0
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        try:
+            got = profile_step.main(argv)
+        except SystemExit as exc:
+            rc = exc.code
+    return rc, got, out.getvalue(), err.getvalue()
+
+
+def kernel_events(path: str) -> tuple[int, int]:
+    """(events, CUDA kernel events) of a Chrome trace file."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return len(events), sum(e.get("cat") == "kernel" for e in events)
+
+
+def profile_rung(label: str, argv: list, counters, card: str) -> tuple:
+    """One admitted profile_step variant: its JSON line and variant line
+    printed, its estimate beside its measured peak; (its returned dict,
+    its launch counts)."""
+    t0 = time.perf_counter()
+    base = torch.cuda.memory_allocated()
+    reset_counts(counters)
+    rc, got, out, err = run_profile_step(argv)
+    counts = read_counts(counters)
+    assert rc == 0, (rc, err[-2000:])
+    line = json.loads(out.strip().splitlines()[-1])
+    assert {k: got[k] for k in line} == line
+    assert {"mfu", "hbm_peak_gb"} <= set(line), line
+    assert math.isfinite(line["loss"]) and line["step_ms"] > 0, line
+    variant = [v for v in err.splitlines() if v.startswith("variant: ")]
+    assert len(variant) == 1, err[-2000:]
+    print(f"  {label}: profile_step {' '.join(argv)}")
+    print(f"      {variant[0]}")
+    print(f"      {json.dumps(line)}")
+    est = got["est_peak_bytes"] / 1e9
+    print(f"      estimate {est:.3f} GB against the measured peak "
+          f"{line['hbm_peak_gb']} GB (ratio {line['hbm_peak_gb'] / est:.3f};"
+          f" {base / 1e9:.3f} GB was allocated before the run); launches "
+          f"{counts}; {time.perf_counter() - t0:.1f} s [{card}]")
+    return got, counts
+
+
+def profile_phase(counters, card: str) -> dict:
+    """Phase 21 (see the module docstring); returns the launch counts of
+    (a) and (b) (none is expected)."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as trace_dir:
+        a, counts_a = profile_rung("(a) the bench recipe",
+                                   PROFILE_A + ["--trace", trace_dir],
+                                   counters, card)
+        n_events, n_kernels = kernel_events(a["trace_file"])
+        size = os.path.getsize(a["trace_file"])
+    assert n_kernels > 0, (n_events, n_kernels)
+    print(f"      trace of {PROFILE_TRACE_STEPS} steps: {n_events} events, "
+          f"{n_kernels} CUDA kernel events, {size / 1e6:.1f} MB")
+    torch.cuda.empty_cache()
+    b, counts_b = profile_rung("(b) remat dots", PROFILE_B, counters, card)
+    torch.cuda.empty_cache()
+
+    base = torch.cuda.memory_allocated()
+    rc, got, out, err = run_profile_step(PROFILE_REFUSED)
+    after = torch.cuda.memory_allocated()
+    assert rc == 2 and got is None and out == "", (rc, out, err[-2000:])
+    assert err.startswith("REFUSED: "), err[-2000:]
+    assert after == base, (base, after)
+    print(f"  (c) profile_step {' '.join(PROFILE_REFUSED)}: exit {rc}; "
+          f"{err.strip()}; card bytes allocated {base} before, {after} "
+          f"after [{card}]")
+
+    kind = torch.cuda.get_device_name(0)
+    argv = ["--step-ms", repr(a["step_ms"])]
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        roofline.main(argv)
+    lines = text.getvalue().splitlines()
+    assert len(lines) == 12 and lines[-3].startswith(
+        f"decomposition of the measured {a['step_ms']:g} ms"), lines
+    print(f"  (d) roofline {' '.join(argv)} on the constants of '{kind}':")
+    for line in lines:
+        print(f"      {line}")
+
+    launches = {
+        f"profile_step (a) bench recipe ({1 + PROFILE_STEPS} + "
+        f"{PROFILE_TRACE_STEPS} traced steps)": counts_a,
+        f"profile_step (b) remat dots ({1 + PROFILE_STEPS} steps)": counts_b}
+    assert not any(v for counts in launches.values() for v in counts.values()), \
+        launches
+    print(f"profiling phase: {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return launches
+
+
 # ---- phase 14: the elastic swarm ----
 
 
@@ -4368,7 +4541,8 @@ def elastic(counters, card: str) -> dict:
         after = step_times(ELASTIC_STEPS_AROUND)
         summary = lc_a["drain_summary"]
         handed = sorted(u for u in uids if u != moved)
-        assert summary["handed_off"] == handed, summary["failed"]
+        assert summary["handed_off"] == handed, (
+            summary["failed"], servers.logs_tail(["elastic-A", "elastic-B"]))
         assert summary["failed"] == [] and summary["checkpointed"] == [], \
             summary
         doc_b = server_doc(metrics[ep_b])
@@ -4721,6 +4895,9 @@ def main() -> int:
     ap.add_argument("--gate-only", action="store_true",
                     help="phases 1 and 20 only (the pre-test gate; no "
                          "kernel is built, no kernels line)")
+    ap.add_argument("--profile-only", action="store_true",
+                    help="phases 1 and 21 only (the step profiler and the "
+                         "roofline; no kernel is built, no kernels line)")
     args = ap.parse_args()
     phase("device")
     if not torch.cuda.is_available():
@@ -4742,8 +4919,13 @@ def main() -> int:
         gate_phase(counters, card)
         print(card)
         return 0
+    if args.profile_only:
+        phase("profiling tools")
+        profile_phase(counters, card)
+        print(card)
+        return 0
     if args.swarm_lm_only or args.gateway_only:
-        phase("swarm LM swarm-dmoe-4l-256e-d512")
+        phase(f"swarm LM {SWARM_LM_NAME}")
         swarm_lm(counters, card, train=not args.gateway_only)
         swarm_lm_twins(card)
         print(card)
@@ -4772,7 +4954,7 @@ def main() -> int:
         build.build_all(sorted(build.LIBRARIES))
         phase("experiment drivers")
         experiments(counters, card)
-        phase("experiment drivers (d) on a gateway of swarm-dmoe-4l-256e-d512")
+        phase(f"experiment drivers (d) on a gateway of {SWARM_LM_NAME}")
         swarm_lm(counters, card, train=False, arms=False)
         print(card)
         return 0
@@ -4822,9 +5004,10 @@ def main() -> int:
     time_dispatch(plans, results)
     time_jitter_noise()
 
-    phase("swarm LM swarm-dmoe-4l-256e-d512")
-    (launches["swarm-dmoe-4l-256e-d512 (train steps)"],
-     launches["gateway swarm-dmoe-4l-256e-d512 (16 streams)"]) = swarm_lm(
+    phase(f"swarm LM {SWARM_LM_NAME}")
+    (launches[f"{SWARM_LM_NAME} (train steps)"],
+     launches[f"gateway {SWARM_LM_NAME} ({GATEWAY_STREAMS} streams)"]) = \
+        swarm_lm(
         counters, card)
     swarm_lm_twins(card)
 
@@ -4852,6 +5035,9 @@ def main() -> int:
 
     phase("pre-test gate")
     launches.update(gate_phase(counters, card))
+
+    phase("profiling tools")
+    launches.update(profile_phase(counters, card))
 
     kernels = []
     for name, (source, replaces, shape) in KERNELS.items():

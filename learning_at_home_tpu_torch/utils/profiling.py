@@ -257,3 +257,24 @@ class Timeline:
 
 
 timeline = Timeline()
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str) -> Iterator[str]:
+    """Capture a ``torch.profiler`` trace (CPU activity, and CUDA activity
+    where there is a card) of the enclosed block and write it as a Chrome
+    trace JSON file into ``log_dir``; yields that file's path.  The
+    profiler records every kernel the block launches on the card, so the
+    block needs no synchronisation of its own beyond the one that ends its
+    work."""
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(log_dir,
+                        f"trace.{os.getpid()}.{time.time_ns()}.json")
+    with torch.profiler.profile(activities=activities) as prof:
+        yield path
+    prof.export_chrome_trace(path)

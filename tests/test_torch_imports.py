@@ -1,5 +1,6 @@
 """The port and its chip smoke script import neither JAX nor the JAX
-package.  Checked on the source (an AST scan): the interpreter that runs
+package, nor the JAX repo's ``bench.py`` or ``__graft_entry__.py``
+(the port keeps its own copies of their sizing).  Checked on the source (an AST scan): the interpreter that runs
 the tests has JAX loaded already, so ``sys.modules`` would prove nothing.
 """
 
@@ -9,7 +10,8 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "learning_at_home_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "learning_at_home_tpu", "bench",
+             "__graft_entry__")
 PORT_FILES = sorted((REPO / "learning_at_home_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "profile_serving.py",
     REPO / "profile_training.py",
