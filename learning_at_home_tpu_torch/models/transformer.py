@@ -81,11 +81,14 @@ from learning_at_home_tpu_torch.parallel.sharded_moe import (
     ShardedMixtureOfExperts,
 )
 from learning_at_home_tpu_torch.tree import tree_leaves, tree_map, tree_unflatten
+from learning_at_home_tpu_torch.utils.profiling import UNMARKED, BackwardRanges
 
 Params = Any
 
-# the prefix of the profiler ranges the model opens: each layer's
-# attention and MoE, the loss, the backward and the optimizer update
+# the prefix of the profiler ranges the model opens: the embedding, each
+# layer's attention and MoE, the loss, the backward and the optimizer
+# update; under a profiler each block's backward has its own range too
+# (``<block>/backward``, utils/profiling.py ``BackwardRanges``)
 PROFILE_RANGE = "dmoe/"
 # the products without batch dims: under remat "dots" their outputs are
 # saved and everything else in the layer is recomputed (batched products,
@@ -180,6 +183,7 @@ class DMoETransformerLM:
             )
         self.cfg = config
         self._decode_model: "DMoETransformerLM | None" = None
+        self._backward_ranges = BackwardRanges()
         self.moe = ShardedMixtureOfExperts(
             hidden_dim=config.d_model,
             num_experts=config.num_experts,
@@ -379,15 +383,21 @@ class DMoETransformerLM:
                           token_mask=mask)
         return y.reshape(b, s, d), aux
 
-    def _layer(self, lp, x, layer_idx, token_mask=None, replicated=False):
-        # profiler ranges (PROFILE_RANGE): profile_training.py attributes
-        # device time to them
-        with record_function(f"{PROFILE_RANGE}layer{layer_idx}/attention"):
+    def _layer(self, lp, x, layer_idx, token_mask=None, replicated=False,
+               marks=UNMARKED):
+        # profiler ranges (PROFILE_RANGE): profile_training.py and the
+        # benchmark attribute device time to them; ``marks`` brackets each
+        # block for its backward's range, outside the forward's range
+        attention = f"{PROFILE_RANGE}layer{layer_idx}/attention"
+        moe = f"{PROFILE_RANGE}layer{layer_idx}/moe"
+        x = marks.block_input(x, attention)
+        with record_function(attention):
             x = x + self._attention(lp, layer_norm(lp["ln1"], x), replicated)
-        with record_function(f"{PROFILE_RANGE}layer{layer_idx}/moe"):
+        x = marks.block_input(marks.block_output(x, attention), moe)
+        with record_function(moe):
             moe_out, aux = self._moe(lp["moe"], layer_norm(lp["ln2"], x),
                                      layer_idx, token_mask, replicated)
-        return x + moe_out, aux
+        return marks.block_output(x + moe_out, moe), aux
 
     def _embed(self, params: Params, token_ids: torch.Tensor,
                start: int = 0, positions=None) -> torch.Tensor:
@@ -406,23 +416,32 @@ class DMoETransformerLM:
     def _hidden(
         self, params: Params, token_ids: torch.Tensor,
         token_mask: torch.Tensor | None = None, replicated: bool = False,
+        marks=UNMARKED,
     ) -> tuple[torch.Tensor, dict]:
         """token_ids [B, S] → final-LN hidden states [B, S, d]; aux scalars
         averaged over layers.  ``token_mask`` [B, S] bool: False marks
         padding that must not take part in MoE routing.  On a mesh see
-        :meth:`apply` for what ``token_ids`` holds."""
+        :meth:`apply` for what ``token_ids`` holds.  ``marks`` brackets
+        the embedding and each layer's blocks for the backward's ranges."""
         zig = self._zig is not None and replicated
-        if self._layout is not None and not replicated:
-            want = len(self.local_positions())
-            if token_ids.shape[1] != want:
-                raise ValueError(
-                    f"the sequence layout was built for seq_len "
-                    f"{self.cfg.seq_len} ({want} columns a rank), got "
-                    f"{token_ids.shape[1]} columns")
-            x = self._embed(params, token_ids,
-                            positions=self.local_positions())
-        else:
-            x = self._embed(params, token_ids)
+        embed = f"{PROFILE_RANGE}embed"
+        # both tables marked before either is used: the closing node runs
+        # after every node the embedding made
+        tables = {**params, **{key: marks.block_input(params[key], embed)
+                               for key in ("embed", "pos")}}
+        with record_function(embed):
+            if self._layout is not None and not replicated:
+                want = len(self.local_positions())
+                if token_ids.shape[1] != want:
+                    raise ValueError(
+                        f"the sequence layout was built for seq_len "
+                        f"{self.cfg.seq_len} ({want} columns a rank), got "
+                        f"{token_ids.shape[1]} columns")
+                x = self._embed(tables, token_ids,
+                                positions=self.local_positions())
+            else:
+                x = self._embed(tables, token_ids)
+        x = marks.block_output(x, embed)
         if zig:
             if token_ids.shape[1] != len(self._zig):
                 raise ValueError(
@@ -445,9 +464,10 @@ class DMoETransformerLM:
                     context_fn=functools.partial(
                         create_selective_checkpoint_contexts, _save_dots))
                 x, aux = checkpoint(self._layer, lp, x, i, token_mask,
-                                    replicated, use_reentrant=False, **extra)
+                                    replicated, marks, use_reentrant=False,
+                                    **extra)
             else:
-                x, aux = self._layer(lp, x, i, token_mask, replicated)
+                x, aux = self._layer(lp, x, i, token_mask, replicated, marks)
             aux_total = aux if aux_total is None else {
                 key: aux_total[key] + aux[key] for key in aux_total
             }
@@ -520,10 +540,13 @@ class DMoETransformerLM:
         recomputes each chunk's logits; a sub-chunk remainder is one more
         checkpointed chunk.  ``ce_impl="fused"`` keeps logits out of
         memory altogether when the kernels' preconditions hold."""
-        x, aux = self._hidden(params, token_ids)
+        marks = self._backward_ranges.marks()
+        x, aux = self._hidden(params, token_ids, marks=marks)
         n_ranks = 1 if self.mesh is None else self.mesh.size(
             token_axes(self.mesh))
-        with record_function(f"{PROFILE_RANGE}loss"):
+        loss_range = f"{PROFILE_RANGE}loss"
+        x = marks.block_input(x, loss_range)
+        with record_function(loss_range):
             head = self._head(params)
             n_local = x.shape[0] * x.shape[1]
             n = n_local * n_ranks  # the global token count
@@ -541,6 +564,7 @@ class DMoETransformerLM:
                         use_reentrant=False,
                     )
                 ce = ce_sum / n
+        ce = marks.block_output(ce, loss_range)
         if n_ranks == 1:
             loss = (
                 ce
@@ -588,6 +612,8 @@ class DMoETransformerLM:
             live = tree_map(lambda t: t.detach().requires_grad_(True), params)
             loss, metrics = self.loss_fn(live, token_ids, targets)
             with record_function(f"{PROFILE_RANGE}backward"):
+                # what an aborted backward left open ends here
+                self._backward_ranges.close_all()
                 grads = torch.autograd.grad(
                     loss, tree_leaves(live), allow_unused=True,
                     materialize_grads=True,

@@ -62,6 +62,16 @@ dispatch path, its headline numbers (round p50/p99, group sizes,
 degraded fraction) also surface without profiling via
 ``DecentralizedAverager.stats()`` / ``AveragingSession.averaging_stats()``.
 
+The model step's **backward ranges** (:class:`BackwardRanges`): under
+an active ``torch.profiler`` the DMoE-Transformer marks the input and the
+output of each block of its forward (the embedding, each layer's
+attention and MoE, the loss) with identity autograd nodes.  The output's
+node opens the profiler range ``<block>/backward`` when the backward
+reaches it, and the input's node closes it; autograd runs a graph's nodes
+in reverse creation order, so the block's gradient (remat's recompute
+included) falls inside, on whatever thread runs the backward.  Without a
+profiler the model applies no marker, and its graph is the unmarked one.
+
 Headline counters do NOT live here: the always-on cheap metrics a
 production peer exports by default belong to the registry in
 ``utils/metrics.py`` (which also re-exports this timeline's counters as
@@ -71,6 +81,7 @@ a collector).  The Timeline is the opt-in, span-granular layer.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import re
@@ -80,6 +91,8 @@ from collections import defaultdict, deque
 from typing import Iterator, Optional
 
 import numpy as np
+import torch
+from torch.autograd.profiler import record_function
 
 from learning_at_home_tpu_torch.utils import sanitizer
 
@@ -267,8 +280,6 @@ def device_trace(log_dir: str) -> Iterator[str]:
     profiler records every kernel the block launches on the card, so the
     block needs no synchronisation of its own beyond the one that ends its
     work."""
-    import torch
-
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -278,3 +289,115 @@ def device_trace(log_dir: str) -> Iterator[str]:
     with torch.profiler.profile(activities=activities) as prof:
         yield path
     prof.export_chrome_trace(path)
+
+
+class _OpenRange(torch.autograd.Function):
+    """Identity whose backward opens ``<name>/backward``: it marks a
+    block's output, whose node the backward reaches before the block's."""
+
+    @staticmethod
+    def forward(ctx, x, ranges, name):
+        ctx.ranges, ctx.name = ranges, name
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ctx.ranges._open(ctx.name)
+        return grad, None, None
+
+
+class _CloseRange(_OpenRange):
+    """Identity whose backward closes ``<name>/backward``: it marks a
+    block's input, whose node the backward reaches after the block's."""
+
+    @staticmethod
+    def backward(ctx, grad):
+        ctx.ranges._close(ctx.name)
+        return grad, None, None
+
+
+class _Unmarked:
+    """The marks of a forward that no profiler records: none."""
+
+    @staticmethod
+    def block_input(x: torch.Tensor, name: str) -> torch.Tensor:
+        return x
+
+    @staticmethod
+    def block_output(y: torch.Tensor, name: str) -> torch.Tensor:
+        return y
+
+
+UNMARKED = _Unmarked()
+
+
+class BackwardRanges:
+    """The profiler ranges ``<name>/backward`` over the backward of marked
+    blocks (module docstring), kept per thread.
+
+    Mark a block's input with :meth:`block_input` before any of its work
+    and its output with :meth:`block_output` after all of it.  The ranges
+    of one set never nest: opening one closes whatever this thread still
+    has open (a block whose input needed no gradient never reaches its
+    closing node).  A range left open when the backward ends is closed
+    then, and :meth:`close_all` closes what an aborted backward left.
+    """
+
+    def __init__(self):
+        self._lock = sanitizer.lock("profiling.backward_ranges")
+        self._open_by_thread: dict[int, tuple[str, record_function]] = {}
+
+    def marks(self) -> "BackwardRanges | _Unmarked":
+        """What a forward marks its blocks with: these ranges while a
+        profiler records on this thread, else :data:`UNMARKED`, which
+        adds no node."""
+        return self if torch.autograd._profiler_enabled() else UNMARKED
+
+    def block_input(self, x: torch.Tensor, name: str) -> torch.Tensor:
+        return _CloseRange.apply(x, self, name)
+
+    def block_output(self, y: torch.Tensor, name: str) -> torch.Tensor:
+        return _OpenRange.apply(y, self, name)
+
+    def open_names(self) -> list[str]:
+        """The names of the ranges open now, on every thread."""
+        with self._lock:
+            return [name for name, _ in self._open_by_thread.values()]
+
+    def _open(self, name: str) -> None:
+        tid = threading.get_ident()
+        with self._lock:
+            stale = self._open_by_thread.pop(tid, None)
+        if stale is not None:
+            stale[1].__exit__(None, None, None)
+        rf = record_function(name + "/backward")
+        rf.__enter__()
+        with self._lock:
+            self._open_by_thread[tid] = (name, rf)
+        # runs when this backward ends, on the thread that ends it
+        torch.autograd.Variable._execution_engine.queue_callback(
+            functools.partial(self._end, tid, rf))
+
+    def _close(self, name: str) -> None:
+        tid = threading.get_ident()
+        with self._lock:
+            entry = self._open_by_thread.get(tid)
+        if entry is not None and entry[0] == name:
+            self._end(tid, entry[1])
+
+    def _end(self, tid: int, rf: record_function) -> None:
+        """Close ``rf``, the range thread ``tid`` opened, if still open."""
+        with self._lock:
+            entry = self._open_by_thread.get(tid)
+            if entry is None or entry[1] is not rf:
+                return
+            del self._open_by_thread[tid]
+        rf.__exit__(None, None, None)
+
+    def close_all(self) -> None:
+        """Close every range still open, on every thread."""
+        with self._lock:
+            left = list(self._open_by_thread.values())
+            self._open_by_thread.clear()
+        for _, rf in left:
+            rf.__exit__(None, None, None)

@@ -19,12 +19,15 @@ summed device time of the kernels, the device's busy share (summed kernel
 time over wall time; the port runs on one stream, so kernels do not
 overlap), the device time by kind of kernel, the kernels that take the
 most device time, and the device time of the model's profiler ranges
-(``models/transformer.py`` ``PROFILE_RANGE``: each layer's attention and
-MoE, the loss, the backward, the optimizer update), each without the
-ranges inside it, by kind of kernel.  The traced steps run the backward
-on the calling thread (autograd's device threads off), so that its
-kernels fall in the backward's range; remat's recompute of a layer falls
-in that layer's ranges.
+(``models/transformer.py`` ``PROFILE_RANGE``: the embedding, each layer's
+attention and MoE, the loss, the backward, the optimizer update), each
+without the ranges inside it, by kind of kernel.  Under the profiler the
+backward of each of those blocks has its own range, opened and closed by
+the backward's own nodes (``dmoe/embed/backward``,
+``dmoe/layer{i}/attention/backward``, ``dmoe/layer{i}/moe/backward``,
+``dmoe/loss/backward``), so the traced steps run as the untraced ones
+do, with autograd's device thread; remat's recompute of a layer falls in
+that layer's forward ranges, nested in the backward's.
 
     python3 profile_training.py [--config flagship-8k-train] [--steps 2]
                                 [--top 15] [--trace-dir traces]
@@ -116,8 +119,7 @@ def main() -> int:
     if args.trace_dir is not None:
         args.trace_dir.mkdir(parents=True, exist_ok=True)
         path = args.trace_dir / f"{args.config}_step.trace.json"
-    with torch.autograd.set_multithreading_enabled(False):
-        wall_ms, rows, prof = traced(lambda: run(args.steps), path)
+    wall_ms, rows, prof = traced(lambda: run(args.steps), path)
     # the ranges' own device-side rows span kernels, they are none
     rows = [r for r in rows if not r[0].startswith(PROFILE_RANGE)]
     print(f"{card_line()}; {args.config}, batch {ids.shape[0]} x "

@@ -225,6 +225,9 @@ ADDED = {
         "write-back vs `stop()` and an `exclusive()` window (port only: a "
         "handoff's install, verify and rollback) | replica-sync thread + "
         "drain/handoff threads; holds `server.expert_state` inside |",
+        "| `profiling.backward_ranges` | 96 | the model step's open "
+        "backward profiler ranges, by thread | the calling thread + "
+        "autograd's device threads, briefly |",
     ],
 }
 
