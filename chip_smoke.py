@@ -18,7 +18,8 @@ Phases, each of which asserts (none catches its own failure):
                their grid, K2 and K3 with their cluster size).
 3. kernels  -- each kernel against its plain PyTorch version on the card,
                at the main paths' shapes and at smaller ones (K5 also at
-               S = 8193, one row past a tile; K1-K3 also at a ragged n and
+               S = 8193, one row past a tile, and its backward at
+               [2832, 256, 8, 64]; K1-K3 also at a ragged n and
                V = 64 * odd), within the stated tolerances; the K5
                backward at [4, 8192, 8, 64] and K2, K3 at flagship-train's
                shape launched twice must give the same bits; K4 (token dispatch)
@@ -42,14 +43,18 @@ Phases, each of which asserts (none catches its own failure):
                batch 176) takes one warm-up step and TRAIN_STEPS timed
                steps on one fixed batch through ``make_train_step``; the
                loss must be finite and fall, each CE kernel must launch
-               once per step; the fused loss and embedding gradient must
-               match the chunked CE's on one batch.
+               once per step and the flash kernels as in phase 7 (the
+               ``auto`` rule picks them at every length); the fused loss
+               and embedding gradient must match the chunked CE's on one
+               batch, and flash attention must match plain attention as
+               in phase 7.
 7. long-context training -- ``flagship-8k-train`` (the same recipe at
                seq_len 8192, batch 4: the ``auto`` rule picks the flash
                kernels, forward and backward) the same way; each step must
                launch the flash forward 8 times (4 layers and their remat
                recompute), the dkv and dq kernels 4 times each and K1-K3
-               once each; on one batch of 1 row the loss and every
+               once each; on one batch of 8192 tokens (1 row; 32 rows
+               in phase 6) the loss and every
                gradient leaf must agree with plain attention on the same
                weights, with each path routing by itself and with the
                plain path replaying the flash path's routing (the
@@ -108,7 +113,9 @@ Phases, each of which asserts (none catches its own failure):
                then ``@ head^T`` for K2 or ``x^T @`` for K3 --, SDPA's
                backward of dq, dk and dv together, and ``index_select``
                of the same rows),
-               each with its share of its bound (bound / time); and the
+               each with its share of its bound (bound / time), K5 at
+               the serving prefill's, flagship-8k-train's and perfbench's
+               seq-256 cell's shapes; and the
                router-jitter noise of one layer drawn without its cache.
 13. swarm LM -- ``swarm-dmoe-2l-256e-d512`` ([BJ] config 3 at the
                config-3 width: d 512, 8 heads, seq 256, byte vocabulary,
@@ -364,7 +371,7 @@ Phases, each of which asserts (none catches its own failure):
                process: (a) ``experiments/profile_step`` with the bench
                recipe (PROFILE_A: batch 176, the per-layer tuple, the
                fused Adafactor, ``--trace``; bf16 params on the card, the
-               chunked CE, plain attention at seq 256) prints its JSON
+               chunked CE, K5 at seq 256) prints its JSON
                line with ``mfu`` and ``hbm_peak_gb``; its trace (3 steps
                under ``utils/profiling.device_trace``) must parse and
                hold CUDA kernel events; its refusal estimate is printed
@@ -374,8 +381,9 @@ Phases, each of which asserts (none catches its own failure):
                card's memory, must exit 2 with the card's allocated
                bytes unchanged; (d) ``tools/roofline`` on the card's
                constants with (a)'s ``step_ms`` as its anchor prints its
-               lines.  No kernel of the kernels line is on this path (0
-               launches over (a) and (b)).
+               lines.  Of the kernels line only K5 is on this path: each
+               step of (a) and (b) launches its forward 8 times (4 layers
+               and their remat recompute), dkv and dq 4 times each.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA card or
@@ -393,8 +401,8 @@ and key-seeded params; no kernels line); ``--mesh-only`` runs phases 1, 2
 and 17 (no kernels line); ``--ckpt-only`` runs phases 1, 2 and 18 (no
 kernels line); ``--tools-only`` runs phases 1 and 19 (no kernel is built,
 no kernels line); ``--gate-only`` runs phases 1 and 20 (no kernel is
-built, no kernels line); ``--profile-only`` runs phases 1 and 21 (no
-kernel is built, no kernels line).
+built, no kernels line); ``--profile-only`` runs phases 1 and 21 (K5
+is built at first use; no kernels line).
 """
 
 from __future__ import annotations
@@ -682,6 +690,9 @@ SERVE_ATTN = (2, 4096, 8, 64)
 TRAIN_ATTN = (TRAIN_8K_BATCH, FLAGSHIP_8K_TRAIN["seq_len"],
               FLAGSHIP_8K_TRAIN["n_heads"],
               FLAGSHIP_8K_TRAIN["d_model"] // FLAGSHIP_8K_TRAIN["n_heads"])
+# one layer's of perfbench's seq-256 training cell
+# (dmoe256-s256.train-b2832): flagship-train's widths at batch 2832
+CELL_256_ATTN = (2832, FLAGSHIP_TRAIN["seq_len"], *TRAIN_ATTN[2:])
 CE_TRAIN, CE_8K_TRAIN = ((batch * cfg["seq_len"], cfg["d_model"],
                           cfg["vocab_size"]) for cfg, batch in
                          list(TRAINING.values())[:2])
@@ -757,11 +768,12 @@ FUSED_LOSS_ATOL, EMBED_GRAD_COSINE = 1e-3, 0.999
 # ~2e-5 for unit-scale inputs) and __expf's few-2^-22 relative error,
 # against values near log(S): 1e-3 absolute.
 LSE_ATOL = 1e-3
-# flagship-8k-train, flash against plain attention on one batch of 1 row,
-# both bf16: the two round attention's output and gradients differently
-# in the last bf16 bit, which the residual stream carries through 4
-# layers.  The loss is a mean over 8192 tokens of CE differences of the
-# size of the logits' (mean 3e-3 in phase 5): 1e-3 relative.  The
+# flagship-8k-train (and flagship-train), flash against plain attention
+# on one batch of 8192 tokens, both bf16: the two round attention's
+# output and gradients differently in the last bf16 bit, which the
+# residual stream carries through 4 layers.  The loss is a mean over
+# 8192 tokens of CE differences of the size of the logits' (mean 3e-3 in
+# phase 5): 1e-3 relative.  The
 # attention projections wq, wk, wv and wo, whose gradients flow through
 # the flash kernels: cosine >= 0.999 and norms within 1e-2 relative (a
 # cosine alone cannot see a gradient off by a constant factor).  The same
@@ -772,6 +784,10 @@ LSE_ATOL = 1e-3
 # replaying the flash path's routing, every leaf must meet the attention
 # projections' limits.
 FLASH_LOSS_RTOL, ATTN_GRAD_COSINE, FLASH_GRAD_COSINE = 1e-3, 0.999, 0.9
+# the tokens those limits were set on, at every sequence length: at 256
+# tokens an expert sees ~2 of them, and one token routed elsewhere moves
+# its leaves far more than at 8192 (~64 an expert)
+FLASH_CHECK_TOKENS = 8192
 ATTN_GRAD_NORM_RTOL = 1e-2
 # phase 17 (mesh), the flagship at full width and depth on meshes of ranks:
 # (a) one NCCL rank, mesh {"data": 1, "expert": 1}, flagship-8k-train;
@@ -1290,8 +1306,9 @@ def build_train(name: str):
     config, batch = TRAINING[name]
     cfg = DMoETransformerConfig(**config)
     model = DMoETransformerLM(cfg, device="cuda")
-    want = "flash" if cfg.seq_len >= 8192 else "xla"
-    assert model.cfg.attn_impl == want, model.cfg.attn_impl
+    # bf16 at head dim 64: the auto rule picks the flash kernels at every
+    # length
+    assert model.cfg.attn_impl == "flash", model.cfg.attn_impl
     params = model.init_params(prng.PRNGKey(SEED))
     optimizer = fused_adafactor(1e-3)
     opt_state = model.init_opt_state(optimizer, params)
@@ -1363,20 +1380,19 @@ def train(name: str, counters, plans: list) -> dict:
           f"{tokens / med * 1e3:.0f} tokens/s, peak {peak_gb:.2f} GB")
     assert all(math.isfinite(x) for x in losses), losses
     assert losses[-1] < float(loss0), "the loss did not fall on a fixed batch"
-    flash = cfg.attn_impl == "flash"
     want = {**dict.fromkeys(counters, 0),
             "fused_ce_fwd": 1, "fused_ce_dx": 1, "fused_ce_dhead": 1,
-            "flash_attn_fwd": 2 * cfg.n_layers if flash else 0,
-            "flash_attn_bwd_dkv": cfg.n_layers if flash else 0,
-            "flash_attn_bwd_dq": cfg.n_layers if flash else 0}
+            "flash_attn_fwd": 2 * cfg.n_layers,
+            "flash_attn_bwd_dkv": cfg.n_layers,
+            "flash_attn_bwd_dq": cfg.n_layers}
     assert per_step == want, (per_step, want)
-    if flash:
+    if not (balanced or short):
         check_flash_training(model, params)
-    elif balanced:
+    if balanced:
         check_jitter_noise(cfg, tokens)
     elif cfg.remat_policy == "dots":
         check_dots(model, params, ids, tgt)
-    elif not short:
+    elif name == "flagship-train":
         check_fused_training(model, params, ids, tgt)
     return n_steps, launches
 
@@ -1513,14 +1529,16 @@ def report_agreement(label: str, agree: dict) -> None:
 
 def check_flash_training(model, params) -> None:
     """Flash against plain attention on the same weights and one batch of
-    1 row, where the plain path's [1, H, S, S] scores fit, first with each
+    FLASH_CHECK_TOKENS tokens (1 row at seq 8192, 32 at 256), where the
+    plain path's [rows, H, S, S] scores fit, first with each
     path routing by itself, then with the plain path replaying the flash
     path's routing.  The losses agree; the attention projections'
     gradients pass ATTN_GRAD_COSINE and ATTN_GRAD_NORM_RTOL, every leaf's
     FLASH_GRAD_COSINE, and with one routing every leaf the attention
     projections' limits; no leaf's gradient is all zeros (wq, wk and wv's
     would be if the flash kernels' gradient were dropped)."""
-    ids, tgt = train_batch(model.cfg, 1, SEED + 3)
+    rows = max(1, FLASH_CHECK_TOKENS // model.cfg.seq_len)
+    ids, tgt = train_batch(model.cfg, rows, SEED + 3)
     plain = DMoETransformerLM(dataclasses.replace(model.cfg, attn_impl="xla"),
                               device="cuda")
     n_layers = model.cfg.n_layers
@@ -1541,7 +1559,7 @@ def check_flash_training(model, params) -> None:
     del g_pinned, g_flash
     rel, rel_pinned = (abs(float(l_flash) - float(x)) / abs(float(x))
                        for x in (l_plain, l_pinned))
-    print(f"flash vs plain attention, batch 1 x {model.cfg.seq_len}: loss "
+    print(f"flash vs plain attention, batch {rows} x {model.cfg.seq_len}: loss "
           f"{float(l_flash):.6f} vs {float(l_plain):.6f} (rel {rel:.2e}), "
           f"{float(l_pinned):.6f} replaying flash's routing (rel "
           f"{rel_pinned:.2e}); dropped fraction "
@@ -4124,7 +4142,7 @@ def profile_rung(label: str, argv: list, counters, card: str) -> tuple:
 
 def profile_phase(counters, card: str) -> dict:
     """Phase 21 (see the module docstring); returns the launch counts of
-    (a) and (b) (none is expected)."""
+    (a) and (b) (K5's alone)."""
     t_phase = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
@@ -4167,8 +4185,16 @@ def profile_phase(counters, card: str) -> dict:
         f"profile_step (a) bench recipe ({1 + PROFILE_STEPS} + "
         f"{PROFILE_TRACE_STEPS} traced steps)": counts_a,
         f"profile_step (b) remat dots ({1 + PROFILE_STEPS} steps)": counts_b}
-    assert not any(v for counts in launches.values() for v in counts.values()), \
-        launches
+    # K5 a step: the forward in each layer and its remat recompute, dkv
+    # and dq in each layer; no other kernel (the chunked CE)
+    layers = sizing.flagship_config().n_layers
+    for counts, steps in ((counts_a, 1 + PROFILE_STEPS + PROFILE_TRACE_STEPS),
+                          (counts_b, 1 + PROFILE_STEPS)):
+        want = {**dict.fromkeys(counts, 0),
+                "flash_attn_fwd": 2 * layers * steps,
+                "flash_attn_bwd_dkv": layers * steps,
+                "flash_attn_bwd_dq": layers * steps}
+        assert counts == want, (counts, want)
     print(f"profiling phase: {time.perf_counter() - t_phase:.1f} s [{card}]")
     return launches
 
@@ -4703,11 +4729,13 @@ def time_fused_ce(shape, gen, results) -> None:
                yardstick_ms=yard_ms)
 
 
-def time_attention(shape, gen, results, train: bool) -> None:
+def time_attention(shape, gen, results, train: bool,
+                   plain_bwd_reps: int = 3) -> None:
     """Phase 8 for K5 at one [B,S,H,hd] shape: the forward (with the lse
     the training path writes when ``train``) and, when ``train``, the dkv
     and dq kernels; each against its bound, its plain version and the
-    PyTorch call (SDPA) or yardstick (SDPA's whole backward)."""
+    PyTorch call (SDPA) or yardstick (SDPA's whole backward).  The plain
+    backward takes ``plain_bwd_reps`` timed calls after one warm-up."""
     b, s, h, hd = shape
     sdpa = torch.nn.functional.scaled_dot_product_attention
     q, k, v, do = (randn_bf16(shape, gen) for _ in range(4))
@@ -4732,7 +4760,7 @@ def time_attention(shape, gen, results, train: bool) -> None:
         yard_ms = median_ms(lambda: torch.autograd.grad(
             out_t, leaves, do_t, retain_graph=True))
         plain_ms = median_ms(lambda: fa.attention_bwd_reference(
-            q, k, v, o, lse, do), reps=3, warmup=1)
+            q, k, v, o, lse, do), reps=plain_bwd_reps, warmup=1)
         for name, fn, n_products, n_out in (
                 ("flash_attn_bwd_dkv",
                  lambda: fa.flash_attention_dkv(q, k, v, do, lse, di), 4, 2),
@@ -4840,8 +4868,9 @@ def check_kernels(gen, results, family: str = "all") -> None:
         for shape in [SERVE_ATTN, MESH_ATTN, (1, 1000, 8, 64), (3, 70, 2, 64),
                       (1, 1, 1, 64), (1, 65, 2, 64), (1, 8193, 8, 64)]:
             check_flash(shape, gen, results)
-        for shape in [TRAIN_ATTN, MESH_ATTN, (1, 8192, 8, 64),
-                      (1, 8193, 8, 64), (2, 4096, 8, 64), (1, 1000, 8, 64)]:
+        for shape in [TRAIN_ATTN, MESH_ATTN, CELL_256_ATTN,
+                      (1, 8192, 8, 64), (1, 8193, 8, 64), (2, 4096, 8, 64),
+                      (1, 1000, 8, 64)]:
             check_flash_bwd(shape, gen, results)
     if family in ("all", "ce"):
         for shape in [CE_TRAIN, CE_8K_TRAIN, MESH_CE, *MESH_CHECK_CE,
@@ -4858,6 +4887,10 @@ def time_kernels(gen, results, family: str = "all") -> None:
         time_attention(SERVE_ATTN, gen, results, train=False)
         torch.cuda.empty_cache()
         time_attention(TRAIN_ATTN, gen, results, train=True)
+        torch.cuda.empty_cache()
+        # the plain backward goes one row at a time: 2.5 s a call here
+        time_attention(CELL_256_ATTN, gen, results, train=True,
+                       plain_bwd_reps=1)
         torch.cuda.empty_cache()
     if family in ("all", "ce"):
         for shape in (CE_TRAIN, CE_8K_TRAIN):

@@ -6,9 +6,9 @@ It restores a checkpoint saved by ``train_lm --mode pod --checkpoint-dir``
 (the port's on-disk form), decodes continuations for a prompt with the
 KV-cache decoder (``generate(use_cache=True)``) or the re-forward one
 (``--no-cache``), and reports decode steps/sec; ``--no-checkpoint`` runs
-on random weights from ``--seed`` as a throughput probe.  At ``--seq-len``
-8192 on the card the prefill runs the flash-attention kernel (the
-``attn_impl="auto"`` rule).
+on random weights from ``--seed`` as a throughput probe.  On the card
+the prefill runs the flash-attention kernel at any ``--seq-len`` (the
+``attn_impl="auto"`` rule: bf16 compute at head dim 64).
 
 ``--swarm`` decodes against live expert servers instead: the trunk runs
 here and every MoE layer goes over the wire through the serving gateway's

@@ -59,7 +59,7 @@ def _grads(q, k, v, do):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 1024, 8, 64), (1, 1000, 4, 64),
                                    (3, 70, 2, 64), (1, 65, 1, 64),
-                                   (1, 8193, 2, 64)])
+                                   (1, 8193, 2, 64), (16, 256, 8, 64)])
 def test_gradients_match_plain_on_card(card, shape):
     q, k, v, do = (_randn(shape, card) for _ in range(4))
     before = (fa.flash_attention.launches, fa.flash_attention_dkv.launches,
@@ -113,7 +113,7 @@ def test_backward_is_deterministic_on_card(card):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 1024, 8, 64), (1, 1000, 4, 64),
-                                   (3, 70, 2, 64)])
+                                   (3, 70, 2, 64), (16, 256, 8, 64)])
 def test_lse_matches_plain_on_card(card, shape):
     q, k, v = (_randn(shape, card) for _ in range(3))
     o, lse = fa.flash_attention_fwd(q, k, v)

@@ -34,7 +34,8 @@ def _qkv(shape, gen):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 1024, 8, 64), (1, 1000, 4, 64),
-                                   (3, 70, 2, 64), (1, 1, 1, 64)])
+                                   (3, 70, 2, 64), (1, 1, 1, 64),
+                                   (16, 256, 8, 64)])
 def test_kernel_matches_plain_on_card(card, shape):
     q, k, v = _qkv(shape, card)
     before = fa.flash_attention.launches

@@ -206,14 +206,32 @@ def test_logits_are_f32_products_of_bf16_operands():
     assert np.abs((tx @ th).float().numpy() - want).max() > 1e-2
 
 
-@pytest.mark.parametrize("seq_len,device,want", [
-    (32, "cpu", "xla"), (8192, "cpu", "xla"), (8192, "cuda", "flash"),
-    (16384, "cuda", "flash"), (4096, "cuda", "xla"), (8200, "cuda", "xla"),
+def _rule_case(seq_len, device, want, tag="", **over):
+    return pytest.param(seq_len, device, want, over,
+                        id="-".join(filter(None, (str(seq_len), device, want,
+                                                  tag))))
+
+
+@pytest.mark.parametrize("seq_len,device,want,over", [
+    _rule_case(32, "cpu", "xla"), _rule_case(8192, "cpu", "xla"),
+    _rule_case(8192, "cuda", "flash"), _rule_case(16384, "cuda", "flash"),
+    _rule_case(4096, "cuda", "flash"), _rule_case(8200, "cuda", "flash"),
+    _rule_case(256, "cuda", "flash"), _rule_case(256, "cpu", "xla"),
+    _rule_case(256, "cuda", "xla", "f32", dtype=torch.float32),
+    _rule_case(8192, "cuda", "xla", "f16", dtype=torch.float16),
+    _rule_case(256, "cuda", "xla", "hd16", n_heads=4),
+    _rule_case(8192, "cuda", "xla", "hd32", n_heads=2),
+    _rule_case(8192, "cuda", "xla", "explicit", attn_impl="xla"),
+    _rule_case(256, "cpu", "flash", "explicit", attn_impl="flash"),
 ])
-def test_auto_attention_rule(seq_len, device, want):
-    """The JAX rule with the CUDA card in the place of the TPU.  Nothing
-    is allocated, so the rule is checked without a card."""
-    cfg = DMoETransformerConfig(**{**TINY, "seq_len": seq_len})
+def test_auto_attention_rule(seq_len, device, want, over):
+    """On a CUDA device the Hopper kernels wherever they take the inputs
+    (bf16 compute, head dim 64) at any length, else plain attention; on
+    the CPU always plain; an explicit ``attn_impl`` as given.  Head dim 64
+    unless a case says otherwise.  Nothing is allocated, so the rule is
+    checked without a card."""
+    cfg = DMoETransformerConfig(
+        **{**TINY, "n_heads": 1, "seq_len": seq_len, **over})
     assert DMoETransformerLM(cfg, device=device).cfg.attn_impl == want
 
 
