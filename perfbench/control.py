@@ -35,7 +35,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import torch  # noqa: E402
 
-from perfbench.lib import check, spec, train, weights  # noqa: E402
+from perfbench.lib import check, spec, train  # noqa: E402
 from perfbench.reference.run import train_readings  # noqa: E402
 
 
@@ -48,14 +48,14 @@ def _free(device) -> None:
 def train_seed(cell, seed: int, device, faults: bool) -> list[dict]:
     cfg, traffic = cell.config, cell.traffic
     t0 = time.perf_counter()
-    prog = train.Program(cfg, traffic, seed, device)
+    prog = train.Program(cell, seed, device)
     readings = prog.checked_steps()
     ids, tgt = prog.checked_batches()
     del prog
     _free(device)
     t1 = time.perf_counter()
-    ref = train_readings(cfg, traffic, seed, ids, tgt, device)
-    names = ["/".join(map(str, path)) for path, *_ in weights.leaf_specs(cfg)]
+    ref = train_readings(cell.family, cfg, traffic, seed, ids, tgt, device)
+    names = ["/".join(map(str, path)) for path, *_ in cell.family.leaf_specs(cfg)]
     rows = [{"side": "program", **check.train_gaps(readings, ref, names)}]
     rows[0]["detail"]["seconds"] = {"program": t1 - t0,
                                     "reference": time.perf_counter() - t1}
@@ -63,7 +63,8 @@ def train_seed(cell, seed: int, device, faults: bool) -> list[dict]:
         for side, kw in (("control_fp8", {"precision": "fp8"}),
                          ("half_batch", {"rows": traffic["batch"] // 2})):
             t = time.perf_counter()
-            got = train_readings(cfg, traffic, seed, ids, tgt, device, **kw)
+            got = train_readings(cell.family, cfg, traffic, seed, ids, tgt,
+                                 device, **kw)
             rows.append({"side": side, **check.train_gaps(got, ref, names)})
             rows[-1]["detail"]["seconds"] = time.perf_counter() - t
             _free(device)

@@ -47,18 +47,18 @@ def moment_shapes(shape: tuple) -> tuple[tuple, tuple, tuple]:
     return (shape[:d0] + shape[d0 + 1:], shape[:d1] + shape[d1 + 1:], (1,))
 
 
-def first_grad_norms(state, cfg: dict, dtype) -> list[float]:
-    """Each leaf's gradient norm (in :func:`weights.leaf_specs` order) from
-    the state after the first step (all 0 where the state does not count
-    exactly one step); :class:`StateLayoutError` if the state is laid out
-    otherwise."""
+def first_grad_norms(state, specs: list, dtype) -> list[float]:
+    """Each leaf's gradient norm (in the order of ``specs``, a family's
+    ``leaf_specs``) from the state after the first step (all 0 where the
+    state does not count exactly one step); :class:`StateLayoutError` if
+    the state is laid out otherwise."""
     _expect(tuple(getattr(state, "_fields", ())) == FIELDS,
             f"fields {getattr(state, '_fields', None)}, expected {FIELDS}")
     _expect(state.count.numel() == 1 and not state.count.is_floating_point(),
             f"count {state.count!r}, expected an integer scalar")
     stepped_once = int(state.count) == 1
     norms = []
-    for path, shape, *_ in weights.leaf_specs(cfg):
+    for path, shape, *_ in specs:
         name = "/".join(map(str, path))
         got = [weights.get_leaf(getattr(state, f), path) for f in FIELDS[1:]]
         for field, t, want in zip(FIELDS[1:], got, moment_shapes(shape)):

@@ -1,13 +1,12 @@
-"""The yardstick's arithmetic: the card's peaks, the model's FLOPs, and
+"""The yardstick's arithmetic: the card's peaks, a step's FLOPs, and
 each kernel's operations and bytes for its roofline.
 
 Frozen here so that no change to the program moves the yardstick.  The
-training FLOPs are the algorithmic count of the port's
-``utils/sizing.py`` ``_model_flops_per_step`` (bench.py's: three times
-the forward's matrix products, attention counted over all ``S`` keys, no
-remat recompute).  A kernel launch's bound is the larger of its
-operations at the bf16 peak and its bytes at the memory bandwidth, the
-bytes counting each input read once and each output written once.
+training FLOPs a token are the model family's own count
+(``families/<name>.py`` ``train_flops_per_token``).  A kernel launch's
+bound is the larger of its operations at the bf16 peak and its bytes at
+the memory bandwidth, the bytes counting each input read once and each
+output written once.
 """
 
 from __future__ import annotations
@@ -19,16 +18,8 @@ PEAK_BYTES = 3.35e12
 BF16, F32, I32 = 2, 4, 4
 
 
-def train_flops_per_token(cfg: dict) -> float:
-    """Training FLOPs a token (forward and backward), bench.py's count."""
-    d, s, v, n = cfg["d_model"], cfg["seq_len"], cfg["vocab_size"], cfg["n_layers"]
-    f = cfg["expert_ffn_dim"]
-    fwd = 2 * d * v + n * (8 * d * d + 4 * s * d + cfg["k"] * 4 * d * f)
-    return 3.0 * fwd
-
-
-def train_flops_per_step(cfg: dict, batch: int) -> float:
-    return train_flops_per_token(cfg) * batch * cfg["seq_len"]
+def train_flops_per_step(family, cfg: dict, batch: int) -> float:
+    return family.train_flops_per_token(cfg) * batch * cfg["seq_len"]
 
 
 def bound_s(flops: float, nbytes: float) -> float:

@@ -4,10 +4,11 @@ program's ranges, the device's busy time and the host's idle gaps.
 ``KINDS`` and :func:`range_device_ms` are frozen copies of the port's
 ``profile_training.py`` (kernel-name patterns, first match wins; device
 time of each range without the ranges nested in it, layers merged as
-``layer*``).  Device-side events are the kernels, copies and sets the
-profiler records on the card; the ranges' own device-side rows (the
-program's ``dmoe/...`` and the benchmark's ``perfbench/...``) span kernels
-and are left out.
+``layer*``).  The program's ranges are those whose names start with the
+model family's ``RANGE_PREFIX``.  Device-side events are the kernels,
+copies and sets the profiler records on the card; the ranges' own
+device-side rows (the program's and the benchmark's ``perfbench/...``)
+span kernels and are left out.
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ from dataclasses import dataclass, field
 
 from torch.autograd import DeviceType
 
-PROGRAM_RANGE = "dmoe/"  # the prefix of the port's profiler ranges
+from perfbench.lib import spec
+
 OWN_RANGE = "perfbench/"  # the benchmark's spans
 WINDOW = OWN_RANGE + "traced"  # the span around the whole traced work
 TOP = 10
@@ -42,20 +44,23 @@ def kind_of(name: str) -> str:
     return "other"
 
 
-def _is_range(name: str) -> bool:
-    return name.startswith(PROGRAM_RANGE) or name.startswith(OWN_RANGE)
+def _is_range(name: str, prefix: str) -> bool:
+    return name.startswith(prefix) or name.startswith(OWN_RANGE)
 
 
-def range_device_ms(events, per: int, prefix: str = PROGRAM_RANGE
+def range_device_ms(events, per: int, prefix: str | None = None
                     ) -> dict[str, dict[str, float]]:
     """{range name: {kind of kernel: device ms per step}} of the ranges
-    whose names start with ``prefix``, each without the ranges nested in
-    it, layer ranges merged over layers ("layer*/attention")."""
+    whose names start with ``prefix`` (by default any model family's
+    ``RANGE_PREFIX``), each without the ranges nested in it, the prefix
+    dropped and layer ranges merged over layers ("layer*/attention")."""
+    prefixes = spec.range_prefixes() if prefix is None else (prefix,)
     out: dict[str, dict[str, float]] = {}
     for evt in events:
-        if evt.device_type != DeviceType.CPU or not evt.name.startswith(prefix):
+        if evt.device_type != DeviceType.CPU or not evt.name.startswith(prefixes):
             continue
-        name = re.sub(r"layer\d+", "layer*", evt.name[len(prefix):])
+        start = next(p for p in prefixes if evt.name.startswith(p))
+        name = re.sub(r"layer\d+", "layer*", evt.name[len(start):])
         slot = out.setdefault(name, {})
         stack = [evt]
         while stack:  # the range's ops, down to the next nested range
@@ -64,7 +69,7 @@ def range_device_ms(events, per: int, prefix: str = PROGRAM_RANGE
                 kind = kind_of(k.name)
                 slot[kind] = slot.get(kind, 0.0) + k.duration / 1e3 / per
             stack.extend(c for c in e.cpu_children
-                         if not c.name.startswith(prefix))
+                         if not c.name.startswith(prefixes))
     return out
 
 
@@ -98,16 +103,16 @@ class Trace:
         return sum(hits) / 1e6, len(hits)
 
 
-def _host_label(stack) -> str:
+def _host_label(stack, prefix: str) -> str:
     """The innermost range (the program's or the benchmark's) and op on
     the host's stack; "-" where there is none (the host ran Python)."""
-    ranges = [e.name for e in stack if _is_range(e.name)]
-    ops = [e.name for e in stack if not _is_range(e.name)]
+    ranges = [e.name for e in stack if _is_range(e.name, prefix)]
+    ops = [e.name for e in stack if not _is_range(e.name, prefix)]
     where = re.sub(r"layer\d+", "layer*", ranges[-1]) if ranges else "-"
     return f"{where} | {ops[-1] if ops else '-'}"
 
 
-def _idle_gaps(kernels, cpu, lo, hi) -> list:
+def _idle_gaps(kernels, cpu, lo, hi, prefix: str) -> list:
     """[label, seconds] of the device's idle time in [lo, hi], by what the
     host's innermost range and op were at the start of each gap."""
     gaps, end = [], lo
@@ -129,14 +134,14 @@ def _idle_gaps(kernels, cpu, lo, hi) -> list:
         for key in [k for k, e in active.items() if e.time_range.end <= t]:
             del active[key]
         stack = sorted(active.values(), key=lambda e: e.time_range.start)
-        label = _host_label(stack)
+        label = _host_label(stack, prefix)
         by[label] = by.get(label, 0.0) + (gaps[i][1] - gaps[i][0]) / 1e6
     return sorted(([k, v] for k, v in by.items()), key=lambda kv: -kv[1])[:TOP]
 
 
-def summarize(prof, per: int) -> Trace:
+def summarize(prof, per: int, prefix: str) -> Trace:
     """The :class:`Trace` of a profile whose work ran inside one
-    ``perfbench/traced`` span."""
+    ``perfbench/traced`` span; ``prefix`` starts the program's ranges."""
     events = prof.events()
     window = [e for e in events
               if e.device_type == DeviceType.CPU and e.name == WINDOW]
@@ -146,7 +151,7 @@ def summarize(prof, per: int) -> Trace:
     thread = window[0].thread
     kernels = []
     for e in events:
-        if e.device_type != DeviceType.CPU and not _is_range(e.name):
+        if e.device_type != DeviceType.CPU and not _is_range(e.name, prefix):
             a, b = max(e.time_range.start, lo), min(e.time_range.end, hi)
             if b > a:
                 kernels.append((e.name, a, b))
@@ -161,7 +166,7 @@ def summarize(prof, per: int) -> Trace:
         per=per, window_s=(hi - lo) / 1e6,
         busy_s=_union_us((a, b) for _, a, b in kernels) / 1e6,
         kernels=kernels,
-        ranges=range_device_ms(events, per, PROGRAM_RANGE),
+        ranges=range_device_ms(events, per, prefix),
         device_ops=ops[:TOP],
-        idle_gaps=_idle_gaps(kernels, cpu, lo, hi),
+        idle_gaps=_idle_gaps(kernels, cpu, lo, hi, prefix),
     )

@@ -1,17 +1,18 @@
 """The training traffic: the port's pod-mode train step, closed loop.
 
-Set-up builds one train step (``DMoETransformerLM.make_train_step`` with
-the fused Adafactor) over weights drawn from the seed, and a pool of
-seeded batches on the device.  The first ``checked_steps`` steps go
-through the same step and feed as the window, on batches that all
-differ; their losses, the first gradient's norms (from the optimizer's
-state) and the parameters' change after them are kept for the check.
-Then ``warmup_steps`` more, and the window: step after step, each ending
-in a synchronise, until ``seconds`` have passed.  A traced run then
-profiles ``traced_steps`` more steps with autograd's device threads off,
-so that the backward's kernels fall in the program's ``dmoe/backward``
-range.  Once the program is freed, the reference takes the checked steps
-on the same weights and batches.
+Set-up builds one train step (the model family's port model, its
+``make_train_step`` with the fused Adafactor) over weights drawn from the
+seed, and a pool of seeded batches on the device.  The first
+``checked_steps`` steps go through the same step and feed as the window,
+on batches that all differ; their losses, the first gradient's norms
+(from the optimizer's state) and the parameters' change after them are
+kept for the check.  Then ``warmup_steps`` more, and the window: step
+after step, each ending in a synchronise, until ``seconds`` have passed.
+A traced run then profiles ``traced_steps`` more steps with autograd's
+device threads off, so that the backward's kernels fall in the program's
+``backward`` range (under the family's ``RANGE_PREFIX``).  Once the
+program is freed, the reference takes the checked steps on the same
+weights and batches.
 """
 
 from __future__ import annotations
@@ -25,62 +26,34 @@ import torch
 from perfbench.lib import adafactor_state, check, weights
 from perfbench.lib.flops import train_flops_per_step
 from perfbench.lib.trace import WINDOW, summarize
-from perfbench.reference.run import DTYPES, train_readings
-
-INPUT_SEED = 250  # the leaf index whose seed draws the token pool
-
-
-def program_config(cfg: dict, traffic: dict):
-    from learning_at_home_tpu_torch.models.transformer import (
-        DMoETransformerConfig,
-    )
-    if cfg["expert_ffn_dim"] != 4 * cfg["d_model"]:
-        raise ValueError("the port's experts are 4 * d_model wide")
-    if cfg["head_dim"] * cfg["n_heads"] != cfg["d_model"]:
-        raise ValueError("head_dim * n_heads must be d_model")
-    remat = traffic.get("remat", "none")
-    return DMoETransformerConfig(
-        vocab_size=cfg["vocab_size"], d_model=cfg["d_model"],
-        n_layers=cfg["n_layers"], n_heads=cfg["n_heads"],
-        seq_len=cfg["seq_len"], num_experts=cfg["num_experts"], k=cfg["k"],
-        capacity_factor=cfg["capacity_factor"],
-        aux_loss_weight=cfg["aux_loss_weight"],
-        router_z_weight=cfg["router_z_weight"],
-        attn_impl=cfg["attn_impl"], dtype=DTYPES[cfg["compute_dtype"]],
-        param_dtype=DTYPES[traffic["param_dtype"]],
-        remat=remat != "none", remat_policy="full" if remat == "none" else remat,
-        scan_layers=bool(traffic["stack_layers"]),
-        stack_layers=bool(traffic["stack_layers"]),
-        tie_embeddings=cfg["tie_embeddings"],
-        ce_impl=traffic.get("ce_impl", "chunked"),
-    )
-
+from perfbench.reference.precision import DTYPES
+from perfbench.reference.run import train_readings
 
 def token_pool(cfg: dict, n: int, rows: int, length: int, seed: int, device):
     """[n, rows, length] int32 token ids drawn from the seed on ``device``."""
-    gen = torch.Generator(device=device).manual_seed(
-        weights.leaf_seed(seed, INPUT_SEED))
+    gen = torch.Generator(device=device).manual_seed(weights.input_seed(seed))
     return torch.randint(0, cfg["vocab_size"], (n, rows, length),
                          dtype=torch.int32, device=device, generator=gen)
 
 
 class Program:
-    """The system under test: model, parameters, optimizer state, step."""
+    """The system under test of a cell: model, parameters, optimizer
+    state, step."""
 
-    def __init__(self, cfg: dict, traffic: dict, seed: int, device):
-        from learning_at_home_tpu_torch.models.transformer import (
-            DMoETransformerLM,
-        )
+    def __init__(self, cell, seed: int, device):
         from learning_at_home_tpu_torch.ops.fused_adafactor import (
             fused_adafactor,
         )
+        cfg, traffic = cell.config, cell.traffic
         if traffic["optimizer"] != "fused_adafactor":
             raise ValueError(f"unknown optimizer {traffic['optimizer']!r}")
-        self.cfg, self.traffic, self.seed, self.device = cfg, traffic, seed, device
-        self.model = DMoETransformerLM(program_config(cfg, traffic), device=device)
+        self.family, self.cfg, self.traffic = cell.family, cfg, traffic
+        self.seed, self.device = seed, device
+        self.specs = self.family.leaf_specs(cfg)
+        self.model = self.family.build(cfg, traffic, device)
         self.dtype = DTYPES[traffic["param_dtype"]]
-        self.params = weights.make_params(cfg, seed, self.dtype, device,
-                                          stacked=traffic["stack_layers"])
+        self.params = weights.make_params(self.family, cfg, seed, self.dtype,
+                                          device, stacked=traffic["stack_layers"])
         opt = fused_adafactor(traffic["learning_rate"])
         self.state = self.model.init_opt_state(opt, self.params)
         self.step_fn = self.model.make_train_step(opt)
@@ -100,16 +73,15 @@ class Program:
 
     def checked_steps(self) -> dict:
         """Take the checked steps; their readings."""
-        specs = weights.leaf_specs(self.cfg)
         losses, grad_norms = [], None
         for _ in range(self.traffic["checked_steps"]):
             losses.append(self.step())
             if grad_norms is None:
                 grad_norms = adafactor_state.first_grad_norms(
-                    self.state, self.cfg, self.dtype)
+                    self.state, self.specs, self.dtype)
         changes = []
-        for index, (path, *_) in enumerate(specs):
-            start = weights.draw_leaf(self.cfg, index, self.seed, self.dtype,
+        for index, (path, *_) in enumerate(self.specs):
+            start = weights.draw_leaf(self.specs, index, self.seed, self.dtype,
                                       self.device)
             changes.append(check.change_norm(
                 weights.get_leaf(self.params, path), start))
@@ -141,7 +113,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t0: float,
     the metrics read."""
     cfg, traffic = cell.config, cell.traffic
     parts = {"imports": time.perf_counter() - t0}
-    prog = program_cls(cfg, traffic, seed, device)
+    prog = program_cls(cell, seed, device)
     sync(device)
     parts["build"] = time.perf_counter() - t0 - sum(parts.values())
     readings = prog.checked_steps()
@@ -180,7 +152,8 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t0: float,
         "window_s": window_s, "steps": len(step_s), "tokens": tokens,
         "peak_window_bytes": peak_window,
         "memory_peak_bytes": max(peak_setup, peak_window),
-        "train_flops": train_flops_per_step(cfg, traffic["batch"]) * len(step_s),
+        "train_flops": train_flops_per_step(cell.family, cfg, traffic["batch"])
+        * len(step_s),
     }
     if trace:
         out["trace"] = traced(prog, traffic["traced_steps"], device)
@@ -188,7 +161,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t0: float,
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    ref = train_readings(cfg, traffic, seed, *batches, device)
+    ref = train_readings(cell.family, cfg, traffic, seed, *batches, device)
     out["numbers"] = check.train_gaps(readings, ref)
     return out
 
@@ -205,4 +178,4 @@ def traced(prog, n: int, device):
                 for _ in range(n):
                     prog.step()
                 sync(device)
-    return summarize(p, n)
+    return summarize(p, n, prog.family.RANGE_PREFIX)

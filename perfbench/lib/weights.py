@@ -1,58 +1,42 @@
-"""Weights from the seed, made on the device in the port's param tree.
+"""Weights from the seed, made on the device in the model family's tree.
 
-The tree has the port's keys and layouts (``embed [V,d]``, ``pos [S,d]``,
-``ln_f``, and per layer ``ln1``, ``wq``..``wo`` ``[d,d]``, ``ln2`` and
-``moe``: ``gate [d,E]``, ``w1 [E,d,f]``, ``b1 [E,f]``, ``w2 [E,f,d]``,
-``b2 [E,d]``), either a tuple of layers or the layers stacked on a
-leading dim.  Each leaf that is drawn gets a generator of its own, seeded
-from the run's seed and the leaf's index, so one leaf can be drawn again
-alone (the reference and the checks do) and the same seed gives the same
-tensors in either layout.  Scales: lecun-normal variance (1 / the product
-of every dim but the last, as the port's initialiser counts fan-in), the
-embeddings and positions N(0, 1/d), the gate N(0, 1e-2 ** 2); norms 1 and
-0, biases 0.
+The family (``families/<name>.py``) gives the tree's leaves
+(``leaf_specs``: path, shape, init and scale of each); the paths give
+their nesting.  The layers are either a tuple of layer trees or one tree
+of leaves stacked on a leading dim.  Each leaf that is drawn gets a
+generator of its own, seeded from the run's seed and the leaf's index, so
+one leaf can be drawn again alone (the reference and the checks do) and
+the same seed gives the same tensors in either layout.
 """
 
 from __future__ import annotations
 
-import math
-
 import torch
 
-def leaf_specs(cfg: dict) -> list[tuple[tuple, tuple, str, float]]:
-    """``(path, shape, init, std)`` of every leaf of one layer-less tree:
-    paths into the tuple layout (``("layers", i, "moe", "w1")``).  ``init``
-    is ``normal``, ``ones`` or ``zeros``."""
-    d, v, s = cfg["d_model"], cfg["vocab_size"], cfg["seq_len"]
-    e, f = cfg["num_experts"], cfg["expert_ffn_dim"]
 
-    def lecun(shape):
-        return 1.0 / math.sqrt(math.prod(shape[:-1]))
-
-    out = [(("embed",), (v, d), "normal", d ** -0.5),
-           (("pos",), (s, d), "normal", d ** -0.5),
-           (("ln_f", "scale"), (d,), "ones", 0.0),
-           (("ln_f", "bias"), (d,), "zeros", 0.0)]
-    for i in range(cfg["n_layers"]):
-        lay = ("layers", i)
-        for ln in ("ln1", "ln2"):
-            out += [(lay + (ln, "scale"), (d,), "ones", 0.0),
-                    (lay + (ln, "bias"), (d,), "zeros", 0.0)]
-        for w in ("wq", "wk", "wv", "wo"):
-            out.append((lay + (w,), (d, d), "normal", lecun((d, d))))
-        moe = lay + ("moe",)
-        out += [(moe + ("gate",), (d, e), "normal", 1e-2),
-                (moe + ("w1",), (e, d, f), "normal", lecun((e, d, f))),
-                (moe + ("b1",), (e, f), "zeros", 0.0),
-                (moe + ("w2",), (e, f, d), "normal", lecun((e, f, d))),
-                (moe + ("b2",), (e, d), "zeros", 0.0)]
-    return out
+LOW_LEAVES = 250  # leaves below it seed in the low byte; 250 is the inputs'
+MAX_LEAVES = 1 << 16
 
 
 def leaf_seed(seed: int, index: int) -> int:
-    """The generator seed of leaf ``index`` (fits in 64 bits for any seed
-    below 2**55)."""
-    return ((int(seed) & ((1 << 55) - 1)) << 8) | index
+    """The generator seed of leaf ``index``.  A leaf below 250 takes the
+    seed's low 55 bits over an index byte, ``seed << 8 | index`` (below
+    2**63); the byte's values from 250 up are left to the inputs
+    (:func:`input_seed`).  A leaf from 250 on takes bit 63 over the seed's
+    low 47 bits and a 16-bit index, ``1 << 63 | seed << 16 | index``,
+    which no seed of the first kind has; so a family has at most 65536
+    leaves."""
+    if not 0 <= index < MAX_LEAVES:
+        raise ValueError(f"leaf index {index} is outside 0..{MAX_LEAVES - 1}")
+    if index < LOW_LEAVES:
+        return ((int(seed) & ((1 << 55) - 1)) << 8) | index
+    return (1 << 63) | ((int(seed) & ((1 << 47) - 1)) << 16) | index
+
+
+def input_seed(seed: int) -> int:
+    """The generator seed of the run's inputs: ``seed << 8 | 250``, which
+    no leaf takes."""
+    return ((int(seed) & ((1 << 55) - 1)) << 8) | LOW_LEAVES
 
 
 def fill_leaf(t: torch.Tensor, init: str, std: float, seed: int,
@@ -66,50 +50,66 @@ def fill_leaf(t: torch.Tensor, init: str, std: float, seed: int,
     return t.normal_(0.0, std, generator=gen)
 
 
-def draw_leaf(cfg: dict, index: int, seed: int, dtype, device) -> torch.Tensor:
-    """Leaf ``index`` of :func:`leaf_specs` alone, as a fresh tensor."""
-    _, shape, init, std = leaf_specs(cfg)[index]
+def draw_leaf(specs: list, index: int, seed: int, dtype,
+              device) -> torch.Tensor:
+    """Leaf ``index`` of a family's ``leaf_specs`` alone, as a fresh
+    tensor."""
+    _, shape, init, std = specs[index]
     return fill_leaf(torch.empty(shape, dtype=dtype, device=device), init,
                      std, seed, index)
 
 
-def _set(tree, path, value):
+def set_leaf(tree: dict, path: tuple, value) -> None:
+    """Put ``value`` at ``path`` in a tree of nested dicts, making the
+    dicts on the way (a layer index is a key until :func:`listed`)."""
     for key in path[:-1]:
-        tree = tree[key]
+        tree = tree.setdefault(key, {})
     tree[path[-1]] = value
 
 
-def make_params(cfg: dict, seed: int, dtype, device,
+def listed(tree):
+    """``tree`` with every dict whose keys are the indices 0..n-1 turned
+    into a tuple in their order (the layers)."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {k: listed(v) for k, v in tree.items()}
+    if out and all(isinstance(k, int) for k in out):
+        if sorted(out) != list(range(len(out))):
+            raise ValueError(f"layer indices {sorted(out)} are not 0..n-1")
+        return tuple(out[i] for i in range(len(out)))
+    return out
+
+
+def tree_of(specs: list, leaves: list) -> dict:
+    """The tuple layout's tree of a flat leaf list in ``specs`` order."""
+    tree: dict = {}
+    for (path, *_), leaf in zip(specs, leaves):
+        set_leaf(tree, path, leaf)
+    return listed(tree)
+
+
+def make_params(family, cfg: dict, seed: int, dtype, device,
                 stacked: bool = False) -> dict:
-    """The whole tree, each leaf drawn on ``device`` in ``dtype``.  With
-    ``stacked`` the layers are one tree of ``[n_layers, ...]`` leaves whose
-    slices hold the tuple layout's values."""
-    n = cfg["n_layers"]
-
-    def layer():
-        return {"ln1": {}, "ln2": {}, "moe": {}}
-
-    layers = [layer() for _ in range(n)]
-    tree = {"ln_f": {}, "layers": layers}
+    """The family's whole tree, each leaf drawn on ``device`` in
+    ``dtype``.  With ``stacked`` the layers are one tree of ``[n_layers,
+    ...]`` leaves whose slices hold the tuple layout's values."""
+    specs = family.leaf_specs(cfg)
+    n = 1 + max((path[1] for path, *_ in specs if path[0] == "layers"),
+                default=-1)
+    tree: dict = {}
     stacks: dict = {}
-    for index, (path, shape, init, std) in enumerate(leaf_specs(cfg)):
+    for index, (path, shape, init, std) in enumerate(specs):
         if stacked and path[0] == "layers":
             key = path[2:]
             if key not in stacks:
                 stacks[key] = torch.empty((n, *shape), dtype=dtype,
                                           device=device)
+                set_leaf(tree, ("layers",) + key, stacks[key])
             fill_leaf(stacks[key][path[1]], init, std, seed, index)
             continue
         t = torch.empty(shape, dtype=dtype, device=device)
-        _set(tree, path, fill_leaf(t, init, std, seed, index))
-    if stacked:
-        top = layer()
-        for key, t in stacks.items():
-            _set(top, key, t)
-        tree["layers"] = top
-    else:
-        tree["layers"] = tuple(layers)
-    return tree
+        set_leaf(tree, path, fill_leaf(t, init, std, seed, index))
+    return tree if stacked else listed(tree)
 
 
 def layer_params(params: dict, i: int) -> dict:

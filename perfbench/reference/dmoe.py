@@ -42,13 +42,6 @@ TOKENS_PER_BLOCK = 1 << 17  # tokens a block of rows takes through a backward
 FP8_MAX = {torch.float8_e4m3fn: 448.0, torch.float8_e5m2: 57344.0}
 
 
-def exact_f32() -> None:
-    """f32 products in f32: no TF32 in matmuls or convolutions."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
-
-
 def _round_fp8(x: torch.Tensor, dtype) -> torch.Tensor:
     amax = x.detach().abs().amax().float().clamp(min=1e-30)
     scale = FP8_MAX[dtype] / amax
@@ -219,15 +212,16 @@ class Model:
         picked = logits.gather(1, t[:, None].long())[:, 0]
         return (torch.logsumexp(logits, dim=-1) - picked).sum()
 
-    def loss_and_grads(self, params, layers, leaves, ids, tgt):
+    def loss_and_grads(self, params, leaves, ids, tgt):
         """The mean loss of one batch (a float) and its gradient by each
-        of ``leaves`` (the tensors ``params`` and ``layers`` are built
-        of).  The routing is decided once over the whole batch
-        (:meth:`plans`); the loss is a sum over tokens given it, so its
-        backward runs a block of rows at a time and the gradients add up:
+        of ``leaves`` (the tensors ``params`` is built of).  The routing
+        is decided once over the whole batch (:meth:`plans`); the loss is
+        a sum over tokens given it, so its backward runs a block of rows
+        at a time and the gradients add up:
         the cross-entropy, the load-balance loss ``E <importance . top-1
         load>`` and the router z-loss, each a mean over all tokens, the
         latter two averaged over layers."""
+        layers = params["layers"]
         plans = self.plans(params, layers, ids)
         b, s = ids.shape
         n, n_layers = b * s, len(layers)

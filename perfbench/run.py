@@ -3,8 +3,9 @@
     python3 perfbench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 The cell (an entry of ``BENCHMARK.json``'s ``workloads``) names a
-configuration and a traffic mix; both are data files, and the traffic's
-``kind`` picks the runner (``train``: ``lib/train.py``).  The run
+configuration and a traffic mix; both are data files.  The traffic's
+``kind`` picks the runner, ``lib/<kind>.py`` (``train``: ``lib/train.py``),
+and the configuration's ``family`` the model, ``families/<family>.py``.  The run
 measures ``learning_at_home_tpu_torch`` on the CUDA card: set-up (counted
 as ``setup_s`` from the process's start), a window of ``--seconds``, with
 ``--trace 1`` a profiled stretch after it, then the check against the
@@ -22,7 +23,7 @@ import time
 T0 = time.perf_counter()
 
 import argparse  # noqa: E402
-import importlib.util  # noqa: E402
+import importlib  # noqa: E402
 import json  # noqa: E402
 import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
@@ -35,16 +36,22 @@ from perfbench.lib import spec  # noqa: E402
 from perfbench.lib.check import verdict  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "learning_at_home_tpu")
-RUNNERS = {"train": "perfbench.lib.train"}
+LIB = Path(__file__).resolve().parent / "lib"
+
+
+def runner(kind: str):
+    """The runner of a traffic ``kind``: the module ``lib/<kind>.py``."""
+    path = LIB / f"{spec.check_name(kind, 'traffic kind')}.py"
+    if not path.is_file():
+        raise ValueError(f"unknown traffic kind {kind!r}: no file {path}")
+    mod = importlib.import_module(f"perfbench.lib.{kind}")
+    if not callable(getattr(mod, "run", None)):
+        raise ValueError(f"unknown traffic kind {kind!r}: {path} has no run")
+    return mod
 
 
 def read_metric(name: str, run: dict):
-    path = spec.metric_path(name)
-    mod_spec = importlib.util.spec_from_file_location(
-        f"perfbench_metric_{name.replace('.', '_').replace('-', '_')}", path)
-    mod = importlib.util.module_from_spec(mod_spec)
-    mod_spec.loader.exec_module(mod)
-    return mod.read(run)
+    return spec.load_file(spec.metric_path(name), "metric").read(run)
 
 
 def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
@@ -52,9 +59,9 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
     """Run ``cell`` on ``device``; the result object (without ``device``)
     and the run's own numbers under ``run``.  ``program_cls`` replaces the
     runner's system under test (the tests plant faults with it)."""
-    runner = importlib.import_module(RUNNERS[cell.traffic["kind"]])
     extra = {} if program_cls is None else {"program_cls": program_cls}
-    run = runner.run(cell, seed, seconds, trace, device, t0, **extra)
+    run = runner(cell.traffic["kind"]).run(cell, seed, seconds, trace, device,
+                                           t0, **extra)
     run["cell"] = cell
     if trace:
         metrics = {}

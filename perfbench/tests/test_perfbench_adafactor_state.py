@@ -16,18 +16,18 @@ SEED = 2**31 + 21
 def stepped():
     """(program after one step, the port's gradient norms at the start)."""
     cell = tiny_train()
-    prog = train.Program(cell.config, cell.traffic, SEED, "cpu")
+    prog = train.Program(cell, SEED, "cpu")
     (_, _), grads = prog.model.value_and_grad(prog.params, prog.ids[0],
                                               prog.tgt[0])
     want = [float(torch.linalg.vector_norm(weights.get_leaf(grads, p).float()))
-            for p, *_ in weights.leaf_specs(cell.config)]
+            for p, *_ in prog.specs]
     prog.step()
     return prog, want
 
 
 def test_norms_are_the_first_gradients(stepped):
     prog, want = stepped
-    got = adafactor_state.first_grad_norms(prog.state, prog.cfg, prog.dtype)
+    got = adafactor_state.first_grad_norms(prog.state, prog.specs, prog.dtype)
     assert len(got) == len(want)
     for g, w in zip(got, want):
         # the moments are stored in bf16, as the parameters are
@@ -49,7 +49,7 @@ def _swap_leaf(state, field, fn):
 def test_a_step_not_taken_once_reads_zero(stepped, count):
     prog, _ = stepped
     state = prog.state._replace(count=torch.full_like(prog.state.count, count))
-    got = adafactor_state.first_grad_norms(state, prog.cfg, prog.dtype)
+    got = adafactor_state.first_grad_norms(state, prog.specs, prog.dtype)
     assert got == [0.0] * len(got)
 
 
@@ -65,4 +65,4 @@ def test_another_layout_is_refused(stepped, fault):
         other = namedtuple("Other", ("count", "v_row", "v_col", "nu"))
         state = other(*state)
     with pytest.raises(adafactor_state.StateLayoutError):
-        adafactor_state.first_grad_norms(state, prog.cfg, prog.dtype)
+        adafactor_state.first_grad_norms(state, prog.specs, prog.dtype)

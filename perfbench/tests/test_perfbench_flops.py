@@ -5,20 +5,23 @@ import pytest
 from perfbench.lib import flops, spec
 
 
+DMOE = spec.load_family("dmoe")
+
+
 def cfg(name):
     return spec.load_json(spec.ROOT / "configs" / f"{name}.json")
 
 
 def test_train_flops_match_bench_py_at_batch_176():
     # bench.py / utils/sizing.py: 232.8 MFLOP a token, 10.49 TF a step
-    step = flops.train_flops_per_step(cfg("dmoe256-s256"), 176)
+    step = flops.train_flops_per_step(DMOE, cfg("dmoe256-s256"), 176)
     assert step == pytest.approx(10.49e12, rel=5e-4)
-    assert flops.train_flops_per_token(cfg("dmoe256-s256")) == pytest.approx(
+    assert DMOE.train_flops_per_token(cfg("dmoe256-s256")) == pytest.approx(
         232.8e6, rel=5e-4)
 
 
 def test_train_flops_at_8192():
-    assert flops.train_flops_per_token(cfg("dmoe256-s8192")) == pytest.approx(
+    assert DMOE.train_flops_per_token(cfg("dmoe256-s8192")) == pytest.approx(
         427.8e6, rel=5e-4)
 
 

@@ -6,36 +6,27 @@ import torch
 
 from conftest import tiny_train
 from perfbench.lib import weights
-from perfbench.lib.train import program_config, token_pool
+from perfbench.lib.train import token_pool
 from perfbench.reference import adafactor
 from perfbench.reference.dmoe import Model
 
 SEED = 2**31 + 11
 
 
-def _port(cell):
-    from learning_at_home_tpu_torch.models.transformer import DMoETransformerLM
-    model = DMoETransformerLM(program_config(cell.config, cell.traffic),
-                              device="cpu")
-    return model
-
-
 def test_loss_and_gradients_match_the_port():
     cell = tiny_train(param_dtype="float32", ce_impl="chunked")
-    cfg = cell.config
-    model = _port(cell)
-    params = weights.make_params(cfg, SEED, torch.float32, "cpu")
+    cfg, family = cell.config, cell.family
+    model = family.build(cfg, cell.traffic, "cpu")
+    params = weights.make_params(family, cfg, SEED, torch.float32, "cpu")
     pool = token_pool(cfg, 1, 8, cfg["seq_len"] + 1, SEED, "cpu")[0]
     ids, tgt = pool[:, :-1].contiguous(), pool[:, 1:].contiguous()
     (loss, _), grads = model.value_and_grad(params, ids, tgt)
 
-    specs = weights.leaf_specs(cfg)
+    specs = family.leaf_specs(cfg)
     live = [weights.get_leaf(params, p).clone().requires_grad_(True)
             for p, *_ in specs]
-    from perfbench.reference.run import _tree
-    tree = _tree(cfg, live)
-    ref_loss, ref_grads = Model(cfg).loss_and_grads(tree, tree["layers"],
-                                                    live, ids, tgt)
+    tree = weights.tree_of(specs, live)
+    ref_loss, ref_grads = Model(cfg).loss_and_grads(tree, live, ids, tgt)
     assert abs(float(loss) - ref_loss) <= 1e-5 * abs(ref_loss)
     for (path, *_), g in zip(specs, ref_grads):
         mine = weights.get_leaf(grads, path)
@@ -65,29 +56,53 @@ def test_one_adafactor_step_matches_the_port():
 
 
 def test_stacked_and_tuple_layouts_hold_the_same_values():
-    cfg = tiny_train().config
-    a = weights.make_params(cfg, 7, torch.bfloat16, "cpu")
-    b = weights.make_params(cfg, 7, torch.bfloat16, "cpu", stacked=True)
-    for index, (path, *_) in enumerate(weights.leaf_specs(cfg)):
+    cell = tiny_train()
+    cfg, family = cell.config, cell.family
+    a = weights.make_params(family, cfg, 7, torch.bfloat16, "cpu")
+    b = weights.make_params(family, cfg, 7, torch.bfloat16, "cpu", stacked=True)
+    specs = family.leaf_specs(cfg)
+    for index, (path, *_) in enumerate(specs):
         assert torch.equal(weights.get_leaf(a, path), weights.get_leaf(b, path))
         assert torch.equal(weights.get_leaf(a, path),
-                           weights.draw_leaf(cfg, index, 7, torch.bfloat16, "cpu"))
+                           weights.draw_leaf(specs, index, 7, torch.bfloat16,
+                                             "cpu"))
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2**31 + 3, 2**55 - 1])
+def test_leaf_seeds_never_meet(seed):
+    got = [weights.leaf_seed(seed, i) for i in range(1000)]
+    assert got[:250] == [(seed << 8) | i for i in range(250)]
+    assert len(set(got)) == len(got)
+    assert weights.input_seed(seed) not in got
+    assert all(0 <= g < 2**64 for g in got)
+    with pytest.raises(ValueError, match="outside"):
+        weights.leaf_seed(seed, 2**16)
+
+
+def test_a_tree_is_nested_by_its_paths():
+    specs = [(("a",), (), "ones", 0.0), (("layers", 1, "b", "c"), (), "ones", 0.0),
+             (("layers", 0, "b", "c"), (), "ones", 0.0), (("d", "e"), (), "ones", 0.0)]
+    assert weights.tree_of(specs, [1, 2, 3, 4]) == {
+        "a": 1, "layers": ({"b": {"c": 3}}, {"b": {"c": 2}}), "d": {"e": 4}}
+    with pytest.raises(ValueError, match="not 0..n-1"):
+        weights.tree_of(specs[1:2], [1])
 
 
 @pytest.mark.parametrize("blocks", ["rows", "experts", "both"])
 def test_blocks_leave_the_reference_unchanged(monkeypatch, blocks):
     from perfbench.reference import dmoe
-    from perfbench.reference.run import _tree
-    cfg = tiny_train(param_dtype="float32").config
-    params = weights.make_params(cfg, SEED, torch.float32, "cpu")
+    cell = tiny_train(param_dtype="float32")
+    cfg, family = cell.config, cell.family
+    params = weights.make_params(family, cfg, SEED, torch.float32, "cpu")
     pool = token_pool(cfg, 1, 8, cfg["seq_len"] + 1, SEED, "cpu")[0]
     ids, tgt = pool[:, :-1].contiguous(), pool[:, 1:].contiguous()
 
     def loss_and_grads():
+        specs = family.leaf_specs(cfg)
         live = [weights.get_leaf(params, p).clone().requires_grad_(True)
-                for p, *_ in weights.leaf_specs(cfg)]
-        tree = _tree(cfg, live)
-        return Model(cfg).loss_and_grads(tree, tree["layers"], live, ids, tgt)
+                for p, *_ in specs]
+        tree = weights.tree_of(specs, live)
+        return Model(cfg).loss_and_grads(tree, live, ids, tgt)
 
     whole, whole_grads = loss_and_grads()
     if blocks != "experts":  # three rows a block: 8 rows in 3 blocks
